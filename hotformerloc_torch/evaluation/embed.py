@@ -1,0 +1,38 @@
+"""Serving entry point: points -> descriptors.
+
+Counterpart of hotformerloc_tpu/training/step.py:make_embed_step as the
+evaluator drives it (bf16 compute, evaluation/pnv_evaluate.py).
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict
+
+import torch
+
+from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+
+
+def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
+                  ) -> Callable[[torch.Tensor, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """Return ``embed(points, pmask) -> {'global', 'octree_overflow',
+    'band_overflow'}`` running ``model`` in ``dtype`` (a converted copy
+    when the model's parameters have another dtype) under
+    ``torch.inference_mode``. Inputs are moved to the model's device.
+    cuDNN TF32 is switched off during the call so fp32 runs stay fp32."""
+    params = next(model.parameters())
+    m = model if params.dtype == dtype else copy.deepcopy(model).to(dtype)
+    m.eval()
+    device = params.device
+
+    def embed(points: torch.Tensor, pmask: torch.Tensor):
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                return m(points.to(device), pmask.to(device))
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    return embed

@@ -1,0 +1,124 @@
+"""Attention modules: windowed (H-OSA / OctFormer) attention, relay-token
+attention (RTSA core) and attentional pooling.
+
+Counterparts of hotformerloc_tpu/models/attention.py. Logits and softmax
+are fp32 whatever the compute dtype. ``WindowAttention`` has two paths
+over the same parameters: the K1 CUDA kernel (ops/kernels/window_attn.py)
+and the plain einsum formulation (``use_kernels = False``). They differ
+only on query rows whose slot is invalid, which the kernel zeroes and no
+consumer reads.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from hotformerloc_torch.models.layers import linear, param, rpe_pos_bnd
+from hotformerloc_torch.ops.kernels.window_attn import window_attention
+from hotformerloc_torch.ops.rpe import rpe_bias_reference
+from hotformerloc_torch.ops.window import MASK_VALUE
+
+
+def masked_softmax(logits: torch.Tensor, key_mask: torch.Tensor,
+                   mask_batch_dims: int) -> torch.Tensor:
+    """fp32 softmax over the last axis with a boolean key mask that
+    broadcasts over the ``mask_batch_dims`` axes before the key axis."""
+    add = torch.where(key_mask, 0.0, MASK_VALUE).to(torch.float32)
+    for _ in range(mask_batch_dims):
+        add = add.unsqueeze(-2)
+    return torch.softmax(logits.float() + add, dim=-1)
+
+
+class WindowAttention(nn.Module):
+    """Windowed MHSA over (B, W, T, C) tokens with T = G + K: G relay
+    slots (no RPE bias) then K window nodes."""
+    use_kernels = True
+
+    def __init__(self, dim: int, num_heads: int, patch_size: int,
+                 dilation: int = 1, rt_per_window: int = 0,
+                 use_rpe: bool = True, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rt_per_window = rt_per_window
+        self.bnd = rpe_pos_bnd(patch_size, dilation)
+        self.qkv = linear(dim, 3 * dim, device=device)
+        self.rpe_table = (param((3 * (2 * self.bnd + 1), num_heads),
+                                "trunc", 0.02, device=device)
+                          if use_rpe else None)
+        self.proj = linear(dim, dim, device=device)
+
+    def forward(self, x, key_mask, xyz_w=None):
+        """x: (B, W, T, C); key_mask: (B, W, T) bool; xyz_w: (B, W, K, 3)
+        int window node coords (None disables the RPE)."""
+        B, W, T, C = x.shape
+        H = self.num_heads
+        G = self.rt_per_window
+        K = T - G
+        hd = C // H
+        use_rpe = self.rpe_table is not None and xyz_w is not None
+        qkv = self.qkv(x)
+        if self.use_kernels:
+            q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B * W, T, C)
+                       .contiguous() for i in range(3))
+            if use_rpe:
+                xyz = (xyz_w.permute(0, 1, 3, 2).reshape(B * W, 3, K)
+                       .to(torch.int32).contiguous())
+                table = self.rpe_table.float().contiguous()
+            else:
+                xyz = torch.zeros((B * W, 3, K), dtype=torch.int32,
+                                  device=x.device)
+                table = torch.zeros((3, H), device=x.device)
+            mask = key_mask.reshape(B * W, T).to(torch.int32).contiguous()
+            out = window_attention(q, k, v, xyz, mask, table, H, self.bnd,
+                                   use_rpe).reshape(B, W, T, C)
+        else:
+            qkv = qkv.reshape(B, W, T, 3, H, hd)
+            q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+            logits = torch.einsum("bwthd,bwshd->bwhts", q.float(),
+                                  k.float()) * hd ** -0.5
+            if use_rpe:
+                bias = rpe_bias_reference(
+                    self.rpe_table.t(), xyz_w, self.bnd).float()
+                logits[..., G:, G:] = logits[..., G:, G:] + bias
+            attn = masked_softmax(logits, key_mask, 2)
+            out = torch.einsum("bwhts,bwshd->bwthd", attn.to(x.dtype), v)
+            out = out.reshape(B, W, T, C)
+        return self.proj(out)
+
+
+class TokenAttention(nn.Module):
+    """Global masked MHSA over (B, M, C) tokens (the RTSA core)."""
+
+    def __init__(self, dim: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = linear(dim, 3 * dim, device=device)
+        self.proj = linear(dim, dim, device=device)
+
+    def forward(self, x, key_mask):
+        B, M, C = x.shape
+        H = self.num_heads
+        hd = C // H
+        qkv = self.qkv(x).reshape(B, M, 3, H, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        logits = torch.einsum("bthd,bshd->bhts", q.float(),
+                              k.float()) * hd ** -0.5
+        attn = masked_softmax(logits, key_mask, 2)
+        out = torch.einsum("bhts,bshd->bthd", attn.to(x.dtype), v)
+        return self.proj(out.reshape(B, M, C))
+
+
+class AdaptivePooling(nn.Module):
+    """k learnable queries attend over the input tokens (SALSA pooling):
+    (B, M, C) with a (B, M) key mask -> (B, k, C)."""
+
+    def __init__(self, feature_dim: int, k_pooled_tokens: int, device=None):
+        super().__init__()
+        self.feature_dim = feature_dim
+        self.query = param((k_pooled_tokens, feature_dim), "normal", 1.0,
+                           device=device)
+
+    def forward(self, x, key_mask):
+        logits = torch.einsum("kc,bmc->bkm", self.query.float(), x.float())
+        attn = masked_softmax(logits * self.feature_dim ** -0.5, key_mask, 1)
+        return torch.einsum("bkm,bmc->bkc", attn.to(x.dtype), x)

@@ -1,0 +1,203 @@
+"""HOTFormer backbone: conv stem, OctFormer stage, HOTFormer stage.
+
+Counterpart of hotformerloc_tpu/models/backbone.py. The JAX package runs
+the HOTFormer iterations under ``nn.scan`` with stacked parameters; here
+they are a Python loop over an ``nn.ModuleList`` (``iters``), and
+``convert.params_from_jax`` unstacks the parameters.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
+                                              RelayTokenBlock)
+from hotformerloc_torch.models.config import ModelConfig
+from hotformerloc_torch.models.layers import (ADaPE, Downsample,
+                                              OctreeConvNormRelu,
+                                              OctreeDownConvNormRelu, linear)
+from hotformerloc_torch.ops import window as ow
+from hotformerloc_torch.ops.plan import OctreePlan
+
+
+class PatchEmbed(nn.Module):
+    """Conv stem: num_down x [27-tap conv -> stride-2 conv] doubling the
+    channels from dim/2^num_down, then a 27-tap projection to ``dim``."""
+
+    def __init__(self, cin: int, dim: int, num_down: int = 2, device=None):
+        super().__init__()
+        self.num_down = num_down
+        chans = [int(dim * 2**i) for i in range(-num_down, 1)]
+        prev = cin
+        for i in range(num_down):
+            self.add_module(f"conv{i}", OctreeConvNormRelu(
+                prev, chans[i], device=device))
+            self.add_module(f"down{i}", OctreeDownConvNormRelu(
+                chans[i], chans[i + 1], device=device))
+            prev = chans[i + 1]
+        self.proj = OctreeConvNormRelu(prev, dim, device=device)
+
+    def forward(self, x, plan: OctreePlan):
+        d = plan.octree.depth
+        for i in range(self.num_down):
+            x = getattr(self, f"conv{i}")(x, plan.level_ctx(d - i).neigh)
+            x = getattr(self, f"down{i}")(x, plan.children(d - i))
+        return self.proj(x, plan.level_ctx(d - self.num_down).neigh)
+
+
+class OctFormerStage(nn.Module):
+    """num_blocks OctFormer blocks at one depth, dilation 1 / D on even /
+    odd blocks."""
+
+    def __init__(self, cfg: ModelConfig, dim: int, num_heads: int,
+                 num_blocks: int, depth: int, device=None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(f"block{i}", OctFormerBlock(
+                dim, num_heads, cfg.patch_size,
+                1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
+                not cfg.disable_rpe, cfg.layer_scale,
+                cpe_dense=depth <= cfg.dense_cpe_max_depth, device=device))
+
+    def forward(self, x, ctx):
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block{i}")(x, ctx)
+        return x
+
+
+class HOTFormerIteration(nn.Module):
+    """One RTSA over all relay tokens, then one H-OSA block per pyramid
+    level."""
+
+    def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
+                 num_heads: Tuple[int, ...], depths: Tuple[int, ...],
+                 device=None):
+        super().__init__()
+        self.use_proj = cfg.use_projections
+        self.chunk = cfg.patch_size // cfg.rt_size
+        max_ch = max(channels)
+        self.rtsa = RelayTokenBlock(
+            max_ch, num_heads[channels.index(max_ch)], cfg.mlp_ratio,
+            cfg.layer_scale, device=device)
+        self.levels = len(channels)
+        for j in range(self.levels):
+            if self.use_proj:
+                self.add_module(f"down_proj{j}", linear(
+                    max_ch, channels[j], device=device))
+            self.add_module(f"hosa{j}", HOTFormerBlock(
+                channels[j], num_heads[j], cfg.patch_size, cfg.mlp_ratio,
+                not cfg.disable_rpe, cfg.layer_scale,
+                cpe_dense=depths[j] <= cfg.dense_cpe_max_depth,
+                device=device))
+            if self.use_proj:
+                self.add_module(f"up_proj{j}", linear(
+                    channels[j], max_ch, device=device))
+
+    def forward(self, rt_comb, locals_, ctxs, rt_mask):
+        rt_comb = self.rtsa(rt_comb, rt_mask)
+        parts, new_locals = [], []
+        off = 0
+        for j in range(self.levels):
+            width = ctxs[j].node_valid.shape[1] // self.chunk
+            rt_j = rt_comb[:, off:off + width]
+            off += width
+            if self.use_proj:
+                rt_j = getattr(self, f"down_proj{j}")(rt_j)
+            x_j, rt_j = getattr(self, f"hosa{j}")(locals_[j], rt_j, ctxs[j])
+            if self.use_proj:
+                rt_j = getattr(self, f"up_proj{j}")(rt_j)
+            parts.append(rt_j)
+            new_locals.append(x_j)
+        return torch.cat(parts, dim=1), new_locals
+
+
+class HOTFormerStage(nn.Module):
+    """Pyramid init (downsample chain), relay-token init (masked window
+    mean + ADaPE), then num_blocks iterations of [RTSA -> H-OSA]."""
+
+    def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
+                 num_heads: Tuple[int, ...], num_blocks: int, depth: int,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.channels = tuple(channels)
+        self.depths = tuple(depth - j for j in range(len(channels)))
+        L = len(channels)
+        max_ch = max(channels)
+        for j in range(L - 1):
+            self.add_module(f"downsample{j}", Downsample(
+                channels[j], channels[j + 1], device=device))
+        self.rt_adape = ADaPE(9, max_ch, device=device)
+        if cfg.use_projections:
+            for j in range(L):
+                self.add_module(f"adape_proj{j}", linear(
+                    max_ch, channels[j], device=device))
+                self.add_module(f"init_up_proj{j}", linear(
+                    channels[j], max_ch, device=device))
+        self.iters = nn.ModuleList(
+            HOTFormerIteration(cfg, self.channels, tuple(num_heads),
+                               self.depths, device=device)
+            for _ in range(num_blocks))
+
+    def forward(self, x, plan: OctreePlan):
+        """Returns ({depth: local features}, rt_comb, rt_mask)."""
+        c = self.cfg
+        chunk = c.patch_size // c.rt_size
+        ctxs = [plan.level_ctx(d) for d in self.depths]
+        locals_ = [x]
+        for j in range(len(self.depths) - 1):
+            locals_.append(getattr(self, f"downsample{j}")(
+                locals_[j], plan.children(self.depths[j])))
+        rts = []
+        for j, d in enumerate(self.depths):
+            rt = ow.masked_window_mean(locals_[j], ctxs[j].node_valid, chunk)
+            stats = ow.window_stats(ctxs[j].xyz, ctxs[j].node_valid, d,
+                                    chunk, c.adape_mode)
+            pe = self.rt_adape(stats)
+            if c.use_projections:
+                pe = getattr(self, f"adape_proj{j}")(pe)
+            rt = rt + pe
+            if c.use_projections:
+                rt = getattr(self, f"init_up_proj{j}")(rt)
+            rts.append(rt)
+        rt_comb = torch.cat(rts, dim=1)
+        rt_mask = torch.cat([ow.window_valid(ctx.node_valid, chunk)
+                             for ctx in ctxs], dim=1)
+        for it in self.iters:
+            rt_comb, locals_ = it(rt_comb, locals_, ctxs, rt_mask)
+        return dict(zip(self.depths, locals_)), rt_comb, rt_mask
+
+
+class HOTFormerBase(nn.Module):
+    """Stem -> OctFormer stage(s) -> HOTFormer stage."""
+
+    def __init__(self, cfg: ModelConfig, in_channels: int, device=None):
+        super().__init__()
+        self.cfg = cfg
+        octf_ch, pyr_ch = cfg.stage_channels()
+        octf_h, pyr_h = cfg.stage_heads()
+        self.patch_embed = PatchEmbed(in_channels, cfg.channels[0],
+                                      cfg.stem_down, device=device)
+        d = cfg.transformer_depth
+        for i in range(cfg.num_octf_levels):
+            self.add_module(f"octf_stage{i}", OctFormerStage(
+                cfg, octf_ch[i], octf_h[i], cfg.num_blocks[i], d,
+                device=device))
+            self.add_module(f"octf_down{i}", Downsample(
+                cfg.channels[i], cfg.channels[i + 1], device=device))
+            d -= 1
+        self.hotf_stage = HOTFormerStage(cfg, pyr_ch, pyr_h,
+                                         cfg.num_blocks[-1], d, device=device)
+
+    def forward(self, feat, plan: OctreePlan):
+        c = self.cfg
+        feat = self.patch_embed(feat, plan)
+        d = c.transformer_depth
+        for i in range(c.num_octf_levels):
+            feat = getattr(self, f"octf_stage{i}")(feat, plan.level_ctx(d))
+            feat = getattr(self, f"octf_down{i}")(feat, plan.children(d))
+            d -= 1
+        return self.hotf_stage(feat, plan)

@@ -1,0 +1,195 @@
+"""Core layers: Linear init, MLP, LayerNorm, octree conv blocks, CPE,
+ADaPE, LayerScale, and the parameter initialisers.
+
+Counterparts of hotformerloc_tpu/models/layers.py (inference only:
+dropout and DropPath are the identity). Parameter layouts follow the JAX
+package so that ``convert.params_from_jax`` is a rename: conv weights
+are (taps, C, O), depthwise weights (27, C, 1), RPE tables (3*num, H).
+
+Compute dtype is the parameters' dtype (``model.to(torch.bfloat16)`` for
+bf16 serving); softmax logits stay fp32.
+
+Kernel routing: modules with a ``use_kernels`` attribute send stride-1
+convs through the CUDA kernels of ops/kernels (whose CPU path is the
+plain version); ``use_kernels = False`` runs the plain tensor code.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hotformerloc_torch.ops import conv as plain
+from hotformerloc_torch.ops.kernels import octree_conv as kconv
+
+# Parameter initialisers, matching the JAX package's distributions:
+#   ("trunc", std)  truncated normal in [-2 std, 2 std] with stddev std
+#                   (flax truncated_normal; Linear kernels, RPE tables)
+#   ("fan_in",)     variance_scaling(1, fan_in, truncated_normal) with
+#                   fan_in = prod(shape[:-1]) (octree conv kernels)
+#   ("normal", s)   normal(s) (pooling queries)
+#   ("const", v)    constant
+_TRUNC_STD = 0.87962566103423978   # std of N(0,1) truncated to [-2, 2]
+
+
+def tag(p: nn.Parameter, *kind) -> nn.Parameter:
+    p.init_kind = kind
+    return p
+
+
+def param(shape, *kind, device=None) -> nn.Parameter:
+    return tag(nn.Parameter(torch.empty(shape, device=device)), *kind)
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Initialise every tagged parameter from ``generator`` (a CPU
+    generator), in named_parameters order, then copy to the device: the
+    same seed gives the same weights on every device."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            kind = getattr(p, "init_kind", None)
+            if kind is None:
+                raise ValueError(f"parameter {name} has no initialiser")
+            t = torch.empty(p.shape, dtype=torch.float32)
+            if kind[0] in ("trunc", "fan_in"):
+                std = (kind[1] if kind[0] == "trunc"
+                       else 1.0 / math.sqrt(math.prod(p.shape[:-1])))
+                nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                t.mul_(std / _TRUNC_STD)
+            elif kind[0] == "normal":
+                t.normal_(0.0, kind[1], generator=generator)
+            elif kind[0] == "const":
+                t.fill_(kind[1])
+            else:
+                raise ValueError(f"unknown initialiser {kind} for {name}")
+            p.copy_(t)
+
+
+def linear(fin: int, fout: int, bias: bool = True, device=None) -> nn.Linear:
+    """nn.Linear with trunc-normal(0.02) weight and zero bias."""
+    m = nn.Linear(fin, fout, bias=bias, device=device)
+    tag(m.weight, "trunc", 0.02)
+    if bias:
+        tag(m.bias, "const", 0.0)
+    return m
+
+
+def layer_norm(dim: int, device=None) -> nn.LayerNorm:
+    m = nn.LayerNorm(dim, eps=1e-5, device=device)
+    tag(m.weight, "const", 1.0)
+    tag(m.bias, "const", 0.0)
+    return m
+
+
+class Mlp(nn.Module):
+    """Two-layer exact-GELU MLP."""
+
+    def __init__(self, fin: int, hidden: int, out: int, device=None):
+        super().__init__()
+        self.fc1 = linear(fin, hidden, device=device)
+        self.fc2 = linear(hidden, out, device=device)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class LayerScale(nn.Module):
+    """Optional per-channel residual scale; identity when init is None."""
+
+    def __init__(self, dim: int, init: Optional[float], device=None):
+        super().__init__()
+        self.gamma = (None if init is None
+                      else param((dim,), "const", init, device=device))
+
+    def forward(self, x):
+        return x if self.gamma is None else x * self.gamma
+
+
+class _KernelRouted(nn.Module):
+    use_kernels = True
+
+    def conv(self, x, neigh, w, b):
+        if self.use_kernels:
+            return kconv.octree_conv(x, neigh, w, b)
+        return plain.octree_conv(x, neigh, w, b)
+
+    def dwconv(self, x, neigh, w):
+        if self.use_kernels:
+            return kconv.octree_dwconv(x, neigh, w)
+        return plain.octree_dwconv(x, neigh, w)
+
+
+class OctreeConvNormRelu(_KernelRouted):
+    """Stride-1 27-tap octree conv + LayerNorm + ReLU. Every such conv,
+    any C, goes through the K5 kernel when kernels are on."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.kernel = param((27, cin, cout), "fan_in", device=device)
+        self.bias = param((cout,), "const", 0.0, device=device)
+        self.norm = layer_norm(cout, device=device)
+
+    def forward(self, x, neigh):
+        return F.relu(self.norm(self.conv(x, neigh, self.kernel, self.bias)))
+
+
+class Downsample(nn.Module):
+    """Kernel-2 stride-2 conv + LayerNorm (no ReLU), plain tensor code."""
+    relu = False
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.kernel = param((8, cin, cout), "fan_in", device=device)
+        self.bias = param((cout,), "const", 0.0, device=device)
+        self.norm = layer_norm(cout, device=device)
+
+    def forward(self, x, children):
+        y = self.norm(plain.octree_down_conv(x, children, self.kernel,
+                                             self.bias))
+        return F.relu(y) if self.relu else y
+
+
+class OctreeDownConvNormRelu(Downsample):
+    """Kernel-2 stride-2 conv + LayerNorm + ReLU (stem downsample)."""
+    relu = True
+
+
+class CPE(_KernelRouted):
+    """Conditional positional encoding: depthwise 27-tap octree conv +
+    LayerNorm. ``dense_grid`` levels use the dense voxel-grid conv
+    (plain); the others go through the K3 kernel when kernels are on."""
+
+    def __init__(self, dim: int, dense_grid: bool = False, device=None):
+        super().__init__()
+        self.dense_grid = dense_grid
+        self.dw_kernel = param((27, dim, 1), "fan_in", device=device)
+        self.norm = layer_norm(dim, device=device)
+
+    def forward(self, x, ctx):
+        w = self.dw_kernel[..., 0]
+        if self.dense_grid:
+            y = plain.octree_dwconv_dense(x, ctx.xyz, ctx.node_valid, w,
+                                          ctx.depth, ctx.dense_idx)
+        else:
+            y = self.dwconv(x, ctx.neigh, w)
+        return self.norm(y)
+
+
+class ADaPE(nn.Module):
+    """Distribution-aware position encoding: MLP over window statistics."""
+
+    def __init__(self, nstats: int, dim: int, device=None):
+        super().__init__()
+        self.mlp = Mlp(nstats, dim, dim, device=device)
+
+    def forward(self, stats):
+        return self.mlp(stats.to(self.mlp.fc1.weight.dtype))
+
+
+def rpe_pos_bnd(patch_size: int, dilation: int) -> int:
+    """pos_bnd = int(0.8 * K * sqrt(D))."""
+    return int(0.8 * patch_size * dilation**0.5)

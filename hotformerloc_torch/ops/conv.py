@@ -1,0 +1,108 @@
+"""Octree convolutions in plain PyTorch (forward only).
+
+Counterparts of hotformerloc_tpu/ops/conv.py. ``octree_conv`` and
+``octree_dwconv`` are also the plain versions of the CUDA kernels in
+ops/kernels/octree_conv.py; the down-conv and the dense-grid depthwise
+conv stay plain tensor code, as XLA computed them in the JAX package.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x: (B, N, C), idx: (B, ...) int with -1 for missing -> (B, ..., C),
+    zero rows where idx < 0."""
+    B, N, C = x.shape
+    flat = idx.reshape(B, -1).long()
+    g = torch.gather(x, 1, torch.clamp(flat, min=0)[..., None].expand(
+        B, flat.shape[1], C))
+    g = g * (flat >= 0)[..., None].to(x.dtype)
+    return g.reshape(*idx.shape, C)
+
+
+def octree_conv(x: torch.Tensor, neigh: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stride-1 octree conv: out[b,n,o] = sum_{k,c} w[k,c,o] *
+    x[b, neigh[b,n,k], c] + b[o]. x: (B, N, C), neigh: (B, N, K),
+    w: (K, C, O). Products accumulate in fp32."""
+    assert neigh.shape[-1] == w.shape[0]
+    g = _gather_rows(x, neigh)                       # (B, N, K, C)
+    B, N, K, C = g.shape
+    out = (g.reshape(B * N, K * C).float()
+           @ w.reshape(K * C, -1).float()).to(x.dtype)
+    out = out.reshape(B, N, -1)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
+
+
+def octree_dwconv(x: torch.Tensor, neigh: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """Depthwise octree conv: out[b,n,c] = sum_k w[k,c] *
+    x[b, neigh[b,n,k], c]. x: (B, N, C), neigh: (B, N, K), w: (K, C)."""
+    assert neigh.shape[-1] == w.shape[0]
+    g = _gather_rows(x, neigh)                       # (B, N, K, C)
+    return torch.einsum("bnkc,kc->bnc", g.float(), w.float()).to(x.dtype)
+
+
+def octree_down_conv(x: torch.Tensor, children: torch.Tensor,
+                     w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel-2 stride-2 conv: children (B, N_parent, 8), w (8, C, O)."""
+    return octree_conv(x, children, w, b)
+
+
+# -- dense-grid depthwise conv (coarse depths) ------------------------------
+
+
+@lru_cache(maxsize=None)
+def _morton_of_raster(depth: int) -> np.ndarray:
+    """Constant (V,) Morton key of every raster-ordered voxel."""
+    D = 2 ** depth
+    r = np.arange(D, dtype=np.int64)
+    x, y, z = np.meshgrid(r, r, r, indexing="ij")
+
+    def spread(v):
+        out = np.zeros_like(v)
+        for i in range(depth):
+            out |= ((v >> i) & 1) << (3 * i)
+        return out
+
+    key = (spread(x) << 2) | (spread(y) << 1) | spread(z)
+    return key.reshape(-1).astype(np.int32)
+
+
+def dense_voxel_index(keys: torch.Tensor, counts: torch.Tensor,
+                      depth: int) -> torch.Tensor:
+    """(B, V) node index of every raster voxel, -1 where empty."""
+    from hotformerloc_torch.octree.neigh import lookup
+    B = keys.shape[0]
+    q = torch.as_tensor(_morton_of_raster(depth), device=keys.device)
+    return lookup(keys, counts, q[None].expand(B, -1))
+
+
+def octree_dwconv_dense(x: torch.Tensor, xyz: torch.Tensor,
+                        valid: torch.Tensor, w: torch.Tensor, depth: int,
+                        vox_idx: torch.Tensor) -> torch.Tensor:
+    """Depthwise octree conv through a dense (B, C, D, D, D) voxel grid,
+    equal to ``octree_dwconv`` with the depth's neighbour table.
+    w: (27, C) in raster tap order, which is the (3, 3, 3) kernel layout.
+    fp32 inputs need ``torch.backends.cudnn.allow_tf32 = False`` on the
+    card for full precision (the embed entry point sets it)."""
+    B, N, C = x.shape
+    D = 2 ** depth
+    dense = _gather_rows(x, vox_idx)                 # (B, V, C)
+    dense = dense.reshape(B, D, D, D, C).permute(0, 4, 1, 2, 3)
+    wk = w.t().reshape(C, 1, 3, 3, 3).to(x.dtype)
+    out = F.conv3d(dense, wk, padding=1, groups=C)   # (B, C, D, D, D)
+    out = out.permute(0, 2, 3, 4, 1).reshape(B, D ** 3, C)
+    vid = (xyz[..., 0] * D + xyz[..., 1]) * D + xyz[..., 2]
+    vid = torch.where(valid, vid, torch.full_like(vid, -1))
+    return _gather_rows(out, vid)
+

@@ -1,0 +1,17 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Each source under hotformerloc_torch/csrc/ is compiled by ``nvcc`` at
+first use into a shared library with a plain C interface, loaded with
+ctypes (build.py). A wrapper launches its kernel on a CUDA tensor and
+takes the plain PyTorch version beside it only for a CPU tensor; a
+build or launch error raises. ``LAUNCHES`` counts kernel launches per
+kernel name, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
