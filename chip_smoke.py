@@ -26,7 +26,28 @@ script exits non-zero without the final line:
    the same card (cos >= 0.9999, max abs <= 1e-4). Retrieval recall@1 of
    the noisy copies against the originals is printed for information
    (the weights are random), with bf16 ms/batch and submaps/s.
-5. the kernels line {"kernels": [...]}, then {"ok": true, "device": ...}.
+5. backward kernels: K2 window attention, K4 depthwise and K6 full
+   octree conv backward at every shape of the train path (microbatch 8
+   of the same clouds, the package's own octree build): kernel vs its
+   plain PyTorch version at fp32 and bf16 (tolerances in TOL_BWD),
+   CUDA-event times of both and, for K2, scaled_dot_product_attention
+   forward + backward with a materialised bias that requires grad (a
+   yardstick that stops at dbias and does not fold it into the table).
+6. train: the Oxford multistage step (make_train_step, batch 32 as 4
+   microbatches of 8, truncatedsmoothap, Adam with L2 weight decay 1e-4
+   on bench.py's schedule, DropPath 0.5). At fp32 with TF32 off, one
+   step's gradients on the kernel path must equal the plain path's
+   (set_use_kernels(False)), per parameter |dg| <= 1e-4 |g_plain| + 1e-7,
+   and the stage-3 embeddings stage 1's (max abs <= 1e-6). In bf16 on
+   fp32 parameters, the launch counters of one step (zeroed just before,
+   read just after) must equal the counts the shape table gives (K1 272,
+   K2 136, K3 192, K4 96, K5 24, K6 12); loss, stats and gradients must
+   be finite; then 3 warm-up and 10 timed steps give step ms, submaps/s,
+   octree + plan ms per step and peak memory.
+7. the kernels line {"kernels": [...]} (six kernels; forward rows per
+   forward of batch 32, backward rows per train step of batch 32), then
+   {"ok": true, "device": ...}.
+Every phase prints its seconds.
 """
 import json
 import os
@@ -43,18 +64,32 @@ import numpy as np
 TOL = {"fp32": {"window_attn": 1e-5, "octree_dwconv": 1e-5,
                 "octree_conv": 1e-4},
        "bf16_rel": 1e-2}
+# Backward, relative to max(1, max |plain|) of each output. fp32: the
+# kernel sums the same fp32 products in another order (dw and the table
+# gradient sum up to ~1.7M terms; the table gradient adds per-window
+# partials with atomics). bf16: dq/dk/dv/dx are rounded to bf16 once on
+# both sides (<= 1 ulp); dw and dtable are fp32 sums of the same
+# products.
+TOL_BWD = {"fp32": {"act": 1e-5, "weight": 1e-4}, "bf16": {"act": 1e-2,
+                                                          "weight": 1e-4}}
+GRAD_TOL = (1e-4, 1e-7)      # train phase: |dg| <= a |g_plain| + b
 REPS = 20
 BATCH = 32
+MICRO = 8                    # microbatch of the train step
+ACCUM = BATCH // MICRO
 HBM_BYTES_S = 3.35e12                                # H100 SXM
 PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}         # CUDA cores / tensor
 REPLACES = {
     "window_attn": "hotformerloc_tpu/ops/pallas/window_attn.py:147",
     "octree_dwconv": "hotformerloc_tpu/ops/pallas/band_conv.py:193",
     "octree_conv": "hotformerloc_tpu/ops/pallas/band_conv.py:242",
+    "window_attn_bwd": "hotformerloc_tpu/ops/pallas/window_attn.py:181",
+    "octree_dwconv_bwd": "hotformerloc_tpu/ops/pallas/band_conv.py:210",
+    "octree_conv_bwd": "hotformerloc_tpu/ops/pallas/band_conv.py:262",
 }
-SOURCES = {"window_attn": "hotformerloc_torch/csrc/window_attn.cu",
-           "octree_dwconv": "hotformerloc_torch/csrc/octree_conv.cu",
-           "octree_conv": "hotformerloc_torch/csrc/octree_conv.cu"}
+SOURCES = {k: "hotformerloc_torch/csrc/" + (
+    "window_attn.cu" if k.startswith("window") else "octree_conv.cu")
+    for k in REPLACES}
 
 
 def emit(obj):
@@ -94,6 +129,309 @@ def clouds(seed=0):
     pts = np.repeat(base, 2, axis=0)
     pts += rng.normal(0, 0.01, pts.shape).astype(np.float32)
     return pts
+
+
+def path_cases(cfg):
+    """Every kernel shape of one oxford_config forward, with its launches
+    per forward: window_attn (label, depth, C, H, dilation, G, n),
+    octree_dwconv (label, depth, C, n), octree_conv (label, depth, C, O,
+    n). The stem's first conv (C = 3 input features) needs no dx."""
+    nb_octf, nb_hotf = cfg.num_blocks[0], cfg.num_blocks[-1]
+    octf_c, octf_h = cfg.channels[0], cfg.num_heads[0]
+    _, pyr_c = cfg.stage_channels()
+    _, pyr_h = cfg.stage_heads()
+    td = cfg.transformer_depth
+    attn = [("octf_dil1", td, octf_c, octf_h, 1, 0, (nb_octf + 1) // 2),
+            ("octf_dil%d" % cfg.dilation, td, octf_c, octf_h,
+             cfg.dilation, 0, nb_octf // 2)]
+    attn += [(f"hosa_d{d}", d, pyr_c[j], pyr_h[j], 1, 1, nb_hotf)
+             for j, d in enumerate(cfg.pyramid_depths)]
+    dw = [(f"cpe_d{td}", td, octf_c, nb_octf)]
+    dw += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
+           for j, d in enumerate(cfg.pyramid_depths)
+           if d > cfg.dense_cpe_max_depth]
+    chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
+    conv = [(f"stem_conv{i}_d{cfg.octree_depth - i}", cfg.octree_depth - i,
+             3 if i == 0 else chans[i], chans[i], 1)
+            for i in range(cfg.stem_down)]
+    conv.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
+    return {"window_attn": attn, "octree_dwconv": dw, "octree_conv": conv}
+
+
+def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
+    """K2, K4, K6 against their plain versions and timed, at every shape
+    of the train path (microbatch ``pts``); rows per kernel name."""
+    from hotformerloc_torch.models.hotformerloc import build_model_plan
+    from hotformerloc_torch.models.layers import rpe_pos_bnd
+    from hotformerloc_torch.ops import conv as plain
+    from hotformerloc_torch.ops import window as ow
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    from hotformerloc_torch.ops.kernels import window_attn as kattn
+    from hotformerloc_torch.ops.rpe import rpe_bias_reference
+
+    plan = build_model_plan(cfg, pts, pmask)
+    octree = plan.octree
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rows = {"window_attn_bwd": [], "octree_dwconv_bwd": [],
+            "octree_conv_bwd": []}
+
+    def check(outs, refs, kinds, kernel, dt):
+        errs = []
+        for o, r, kind in zip(outs, refs, kinds):
+            if r is None:
+                continue
+            err = float((o.float() - r.float()).abs().max())
+            lim = TOL_BWD[dt][kind] * max(1.0, float(r.float().abs().max()))
+            if not (err <= lim and torch.isfinite(o.float()).all()):
+                raise AssertionError(f"{kernel} {dt}: max |kernel - plain| "
+                                     f"= {err} > {lim}")
+            errs.append(err)
+        return max(errs)
+
+    for label, d, C, H, D, G, per_fwd in cases["window_attn"]:
+        ctx = plan.level_ctx(d)
+        K = cfg.patch_size
+        T = K + G
+        xyz_w = ow.data_to_windows(ctx.xyz, K, D)
+        BW = xyz_w.shape[0] * xyz_w.shape[1]
+        xyz = xyz_w.permute(0, 1, 3, 2).reshape(BW, 3, K).to(
+            torch.int32).contiguous()
+        nmask = ow.window_key_mask(ctx.node_valid, K, D)
+        kmask = torch.cat([nmask.any(-1, keepdim=True), nmask], -1) \
+            if G else nmask
+        mask = kmask.reshape(BW, T).to(torch.int32).contiguous()
+        bnd = rpe_pos_bnd(cfg.patch_size, D)
+        table = rnd(3 * (2 * bnd + 1), H, scale=0.5).float()
+        t32 = [rnd(BW, T, C) for _ in range(4)]          # q, k, v, g
+        row = {"case": label, "shape": [BW, T, C], "heads": H, "bnd": bnd,
+               "per_step": per_fwd * ACCUM}
+        hd = C // H
+        for dt, tdt in dtypes.items():
+            q, k, v, g = (t.to(tdt) for t in t32)
+            args = (q, k, v, xyz, mask, table, g, H, bnd)
+            out = kattn.window_attention_bwd(*args)
+            ref = kattn.window_attention_bwd_reference(*args)
+            row[f"err_{dt}"] = check(out, ref, ("act",) * 3 + ("weight",),
+                                     "window_attn_bwd", dt)
+            row[f"ms_{dt}"] = time_ms(
+                torch, lambda: kattn.window_attention_bwd(*args))
+            row[f"plain_ms_{dt}"] = time_ms(
+                torch, lambda: kattn.window_attention_bwd_reference(*args))
+            # yardstick: SDPA forward + backward, bias materialised and
+            # differentiated (it stops at dbias: no fold into the table)
+            qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2).detach()
+                          .requires_grad_() for t in (q, k, v))
+            gh = g.reshape(BW, T, H, hd).transpose(1, 2)
+            bias = torch.zeros(BW, H, T, T, device=dev)
+            bias[:, :, G:, G:] = rpe_bias_reference(
+                table.t(), xyz.transpose(1, 2)[None], bnd)[0]
+            bias = bias + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+            bias = bias.to(tdt).requires_grad_()
+
+            def lib():
+                o = F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=bias)
+                torch.autograd.grad(o, (qh, kh, vh, bias), gh)
+            row[f"library_ms_{dt}"] = time_ms(torch, lib)
+            esz = q.element_size()
+            nbytes = (7 * BW * T * C * esz + xyz.numel() * 4
+                      + mask.numel() * 4 + 2 * table.numel() * 4)
+            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                nbytes, 10 * BW * T * T * C, dt)
+            del bias, qh, kh, vh, out, ref
+        rows["window_attn_bwd"].append(row)
+        emit({"phase": "kernel_bwd", "kernel": "window_attn_bwd", **row})
+
+    for label, d, C, per_fwd in cases["octree_dwconv"]:
+        neigh = plan.neighs[octree.level(d)]
+        B, N, _ = neigh.shape
+        taps = int((neigh >= 0).sum())
+        x32, dy32 = rnd(B, N, C), rnd(B, N, C)
+        w32 = rnd(27, C, scale=(27 * C) ** -0.5)
+        row = {"case": label, "shape": [B, N, C], "valid_taps": taps,
+               "per_step": per_fwd * ACCUM}
+        for dt, tdt in dtypes.items():
+            x, w, dy = x32.to(tdt), w32.to(tdt), dy32.to(tdt)
+            out = kconv.octree_dwconv_bwd(x, neigh, w, dy)
+            ref = plain.octree_dwconv_bwd(x, neigh, w, dy)
+            row[f"err_{dt}"] = check(out, ref, ("act", "weight"),
+                                     "octree_dwconv_bwd", dt)
+            row[f"ms_{dt}"] = time_ms(
+                torch, lambda: kconv.octree_dwconv_bwd(x, neigh, w, dy))
+            row[f"plain_ms_{dt}"] = time_ms(
+                torch, lambda: plain.octree_dwconv_bwd(x, neigh, w, dy))
+            row[f"library_ms_{dt}"] = None
+            esz = x.element_size()
+            nbytes = (3 * B * N * C * esz + neigh.numel() * 4
+                      + 27 * C * (esz + 4))
+            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                nbytes, 4 * taps * C, dt)
+        rows["octree_dwconv_bwd"].append(row)
+        emit({"phase": "kernel_bwd", "kernel": "octree_dwconv_bwd", **row})
+
+    for label, d, C, O, per_fwd in cases["octree_conv"]:
+        neigh = plan.neighs[octree.level(d)]
+        B, N, _ = neigh.shape
+        taps = int((neigh >= 0).sum())
+        need_dx = d != cfg.octree_depth      # input features need no dx
+        x32, dy32 = rnd(B, N, C), rnd(B, N, O)
+        w32 = rnd(27, C, O, scale=(27 * C) ** -0.5)
+        row = {"case": label, "shape": [B, N, C, O], "valid_taps": taps,
+               "dx": need_dx, "per_step": per_fwd * ACCUM}
+        for dt, tdt in dtypes.items():
+            x, w, dy = x32.to(tdt), w32.to(tdt), dy32.to(tdt)
+            args = (x, neigh, w, dy, need_dx)
+            out = kconv.octree_conv_bwd(*args)
+            ref = plain.octree_conv_bwd(*args)
+            row[f"err_{dt}"] = check(out, ref, ("act", "weight", "weight"),
+                                     "octree_conv_bwd", dt)
+            row[f"ms_{dt}"] = time_ms(
+                torch, lambda: kconv.octree_conv_bwd(*args))
+            row[f"plain_ms_{dt}"] = time_ms(
+                torch, lambda: plain.octree_conv_bwd(*args))
+            row[f"library_ms_{dt}"] = None
+            esz = x.element_size()
+            nbytes = (B * N * (C * (2 if need_dx else 1) + O) * esz
+                      + neigh.numel() * 4 + 27 * C * O * (esz + 4) + O * 4)
+            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                nbytes, (4 if need_dx else 2) * taps * C * O, dt)
+        rows["octree_conv_bwd"].append(row)
+        emit({"phase": "kernel_bwd", "kernel": "octree_conv_bwd", **row})
+    torch.cuda.synchronize()
+    return rows
+
+
+def train_phase(torch, dev, cfg, pts, pmask, cases):
+    """The multistage train step: fp32 kernel vs plain gradients, then
+    bf16 launch counts and timing. Returns (launches of one bf16 step,
+    the phase's numbers)."""
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
+                                                        build_model_plan)
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+
+    groups = np.repeat(np.arange(BATCH // 2), 2)
+    same = groups[:, None] == groups[None]
+    batch = {"points": pts, "pmask": pmask,
+             "positives_mask": torch.from_numpy(
+                 same & ~np.eye(BATCH, dtype=bool)).to(dev),
+             "negatives_mask": torch.from_numpy(~same).to(dev)}
+    loss_fn = make_loss("truncatedsmoothap", positives_per_query=4)
+    sched = lr_schedule(5e-4, steps_per_epoch=100, epochs=150,
+                        warmup_epochs=5, milestones=[100])
+
+    def make(dtype, use_kernels):
+        m = HOTFormerLoc(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=dtype)
+        m.set_use_kernels(use_kernels)
+        opt = make_optimizer(m.parameters(), "adam", sched, weight_decay=1e-4)
+        return m, make_train_step(m, opt, loss_fn, StepConfig(
+            accum_steps=ACCUM, check_recompute=True))
+
+    out = {"config": "oxford_config", "batch": BATCH, "accum_steps": ACCUM,
+           "drop_path": cfg.drop_path, "grad_checkpoint": False}
+    # fp32, TF32 off (set in main): kernel path against plain path
+    grads = {}
+    for tag, use_kernels in (("kernel", True), ("plain", False)):
+        m, step = make(torch.float32, use_kernels)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = step(batch, 0)
+        torch.cuda.synchronize()
+        out[f"fp32_{tag}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"fp32_{tag}_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"fp32_{tag}_loss"] = float(stats["loss"])
+        out[f"fp32_{tag}_recompute_max_abs"] = float(
+            stats["recompute_max_abs"])
+        grads[tag] = {n: p.grad.detach().clone()
+                      for n, p in m.named_parameters()}
+        del m, step, stats
+        torch.cuda.empty_cache()
+    worst, bad = 0.0, []
+    for n, gp in grads["plain"].items():
+        d = float((grads["kernel"][n] - gp).norm())
+        lim = GRAD_TOL[0] * float(gp.norm()) + GRAD_TOL[1]
+        worst = max(worst, d / lim)
+        if not (d <= lim and torch.isfinite(grads["kernel"][n]).all()):
+            bad.append((n, d, lim))
+    if bad:
+        raise AssertionError(f"fp32 kernel vs plain gradients: {len(bad)} "
+                             f"tensors off, e.g. {bad[:3]}")
+    if out["fp32_kernel_recompute_max_abs"] > 1e-6:
+        raise AssertionError("stage-3 embeddings differ from stage 1: "
+                             f"{out['fp32_kernel_recompute_max_abs']}")
+    out.update(fp32_grad_tensors=len(grads["plain"]),
+               fp32_grad_worst_ratio_to_limit=worst)
+    del grads
+    torch.cuda.empty_cache()
+
+    # bf16 compute on fp32 parameters, kernel path
+    m, step = make(torch.bfloat16, True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = step(batch, 0)
+    torch.cuda.synchronize()
+    warm = [(time.perf_counter() - t0) * 1e3]
+    launches = dict(kernels.LAUNCHES)
+    want = {}
+    for k, cs in cases.items():
+        per_fwd = sum(c[-1] for c in cs)
+        want[k] = per_fwd * ACCUM * 2            # stage 1 + stage 3
+        want[k + "_bwd"] = per_fwd * ACCUM
+    if want != {"window_attn": 272, "octree_dwconv": 192, "octree_conv": 24,
+                "window_attn_bwd": 136, "octree_dwconv_bwd": 96,
+                "octree_conv_bwd": 12}:
+        raise AssertionError(f"train-path shape table is off: {want}")
+    if launches != want:
+        raise AssertionError(f"train launches {launches} != {want}")
+    finite = all(bool(torch.isfinite(v.float()).all()) for v in stats.values())
+    finite &= all(bool(torch.isfinite(p.grad).all()) for p in m.parameters())
+    if not finite:
+        raise AssertionError("non-finite loss, stats or gradients in the "
+                             "bf16 step")
+    out.update(bf16_launches_per_step=launches,
+               bf16_stats_step0={k: float(v) for k, v in stats.items()})
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        step(batch, i)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(10):
+        t0 = time.perf_counter()
+        stats = step(batch, 3 + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(stats["loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    ms = statistics.median(times)
+
+    def plans():
+        with torch.no_grad():
+            for i in range(ACCUM):
+                sl = slice(i * MICRO, (i + 1) * MICRO)
+                build_model_plan(cfg, pts[sl], pmask[sl])
+        torch.cuda.synchronize()
+
+    plans()
+    plan_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        plans()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(bf16_warmup_ms=warm, bf16_step_ms=ms,
+               bf16_step_ms_all=times, bf16_submaps_per_s=BATCH / (ms / 1e3),
+               bf16_losses=losses,
+               octree_plan_ms_per_step=statistics.median(plan_ms),
+               bf16_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, out
 
 
 def main():
@@ -146,6 +484,7 @@ def main():
           "ptxas": ptxas})
 
     # ---- 3. kernels at the main path's shapes ----------------------------
+    t_phase = time.time()
     cfg = oxford_config()
     pts = torch.from_numpy(clouds()).to(dev)
     pmask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
@@ -158,27 +497,10 @@ def main():
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
     P = cfg.patch_size
-    nb_octf, nb_hotf = cfg.num_blocks[0], cfg.num_blocks[-1]
-    octf_c, octf_h = cfg.channels[0], cfg.num_heads[0]
-    _, pyr_c = cfg.stage_channels()
-    _, pyr_h = cfg.stage_heads()
-    td = cfg.transformer_depth
-    # (label, depth, C, H, dilation, G, launches per forward)
-    attn_cases = [("octf_dil1", td, octf_c, octf_h, 1, 0,
-                   (nb_octf + 1) // 2),
-                  ("octf_dil%d" % cfg.dilation, td, octf_c, octf_h,
-                   cfg.dilation, 0, nb_octf // 2)]
-    attn_cases += [(f"hosa_d{d}", d, pyr_c[j], pyr_h[j], 1, 1, nb_hotf)
-                   for j, d in enumerate(cfg.pyramid_depths)]
-    dw_cases = [(f"cpe_d{td}", td, octf_c, nb_octf)]
-    dw_cases += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
-                 for j, d in enumerate(cfg.pyramid_depths)
-                 if d > cfg.dense_cpe_max_depth]
-    chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
-    conv_cases = [(f"stem_conv{i}_d{cfg.octree_depth - i}",
-                   cfg.octree_depth - i, 3 if i == 0 else chans[i],
-                   chans[i], 1) for i in range(cfg.stem_down)]
-    conv_cases.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
+    cases = path_cases(cfg)
+    attn_cases, dw_cases, conv_cases = (cases["window_attn"],
+                                        cases["octree_dwconv"],
+                                        cases["octree_conv"])
 
     def bound(nbytes, flops, dt):
         tb, tf = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dt]
@@ -299,8 +621,11 @@ def main():
         emit({"phase": "kernel", "kernel": "octree_conv", **row})
     torch.cuda.synchronize()
     del octree, plan
+    emit({"phase": "kernels_seconds",
+          "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 4. the slice: embed 32 clouds ---------------------------------
+    t_phase = time.time()
     model = HOTFormerLoc(cfg, device="cuda",
                          generator=torch.Generator().manual_seed(0))
     embed_bf16 = make_embed_fn(model, torch.bfloat16)
@@ -318,6 +643,7 @@ def main():
             for k, rows in results.items()}
     if want != {"window_attn": 34, "octree_dwconv": 24, "octree_conv": 3}:
         raise AssertionError(f"main-path shape table is off: {want}")
+    want = {k: want.get(k, 0) for k in kernels.LAUNCHES}   # no backward
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
 
@@ -394,30 +720,53 @@ def main():
           "submaps_per_s_bf16": BATCH / (ms / 1e3),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
-    # ---- 5. kernels line + result --------------------------------------
+    emit({"phase": "slice_seconds",
+          "seconds": round(time.time() - t_phase, 1)})
+    del model, plain_model, embed_bf16, embed_fp32, embed_plain
+    torch.cuda.empty_cache()
+
+    # ---- 5. backward kernels at the train path's shapes ------------------
+    t_phase = time.time()
+    bwd = bwd_kernel_phase(torch, F, dev, cfg, pts[:MICRO], pmask[:MICRO],
+                           cases, bound, rnd)
+    emit({"phase": "bwd_kernels_seconds",
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 6. the train step -----------------------------------------------
+    t_phase = time.time()
+    train_launches, train = train_phase(torch, dev, cfg, pts, pmask, cases)
+    emit({"phase": "train", **train,
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 7. kernels line + result ----------------------------------------
     line = []
-    for kname, rows in results.items():
-        def per_fwd(key):
+    for kname, rows in {**results, **bwd}.items():
+        is_bwd = kname.endswith("_bwd")
+        mult = "per_step" if is_bwd else "per_forward"
+
+        def total(key):
             vals = [r[key] for r in rows]
             if any(v is None for v in vals):
                 return None
-            return sum(v * r["per_forward"] for v, r in zip(vals, rows))
-        bound_ms = per_fwd("bound_ms_bf16")
+            return sum(v * r[mult] for v, r in zip(vals, rows))
         by = {r["bound_by_bf16"] for r in rows}
         line.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname],
+            "launches": (train_launches if is_bwd else launches)[kname],
+            "launches_train_step": train_launches[kname],
             "max_abs_err": max(r["err_fp32"] for r in rows),
             "max_abs_err_bf16": max(r["err_bf16"] for r in rows),
-            "ms": per_fwd("ms_bf16"), "plain_ms": per_fwd("plain_ms_bf16"),
-            "bound_ms": bound_ms,
+            "ms": total("ms_bf16"), "plain_ms": total("plain_ms_bf16"),
+            "bound_ms": total("bound_ms_bf16"),
             "bound_by": "bytes" if by == {"bytes"} else "operations",
-            "library_ms": per_fwd("library_ms_bf16"),
-            "ms_fp32": per_fwd("ms_fp32"),
-            "plain_ms_fp32": per_fwd("plain_ms_fp32"),
-            "bound_ms_fp32": per_fwd("bound_ms_fp32"),
-            "units": "ms per forward of batch 32 (bf16 unless _fp32), "
-                     "summed over the main path's launches"})
+            "library_ms": total("library_ms_bf16"),
+            "ms_fp32": total("ms_fp32"),
+            "plain_ms_fp32": total("plain_ms_fp32"),
+            "bound_ms_fp32": total("bound_ms_fp32"),
+            "units": ("ms per train step of batch 32 (4 microbatches of 8)"
+                      if is_bwd else "ms per forward of batch 32")
+            + " (bf16 unless _fp32), summed over the path's launches"})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 1)})
     print(smi, flush=True)
     emit({"kernels": line})

@@ -12,7 +12,10 @@ numpy arrays (no JAX needed) and renames it onto this package's modules:
   ``nn.scan``, is unstacked into ``backbone.hotf_stage.iters.<i>``.
 
 Every JAX leaf is used exactly once and every parameter of the target
-model is set; the converter raises otherwise.
+model is set; the converter raises otherwise. Any tree shaped like the
+params maps the same way: ``params_from_jax`` of a ``jax.grad`` tree
+gives the gradients by the port's parameter names (Dense kernels
+transposed like the weights), which is how the tests compare gradients.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 // Stride-1 27-tap octree convolutions by direct neighbour gather, forward
-// only, for Hopper (sm_90a). neigh[b, n, k] is the row of node n's k-th
-// neighbour within sample b, -1 where there is none (contributes 0).
+// and backward, for Hopper (sm_90a). neigh[b, n, k] is the row of node n's
+// k-th neighbour within sample b, -1 where there is none (contributes 0).
 //
 // octree_dwconv_fwd -- depthwise:  out[b,n,c] = sum_k w[k,c] x[b, neigh[b,n,k], c]
 //   Replaces hotformerloc_tpu/ops/pallas/band_conv.py:_dw_fwd_kernel together
@@ -28,6 +28,17 @@
 //   multiplied out. Any C and O (C = 3 at the stem's first conv) work:
 //   tiles are zero-padded at the edges. Tensor cores (wgmma) and a
 //   pipelined gather are later work.
+//
+// octree_dwconv_bwd (K4) and octree_conv_bwd (K6) replace
+//   band_conv.py:_dw_bwd_kernel and _conv_bwd_kernel with their escape
+//   patches (_banded_dwconv_bwd, _banded_conv_bwd). dx reuses the forward
+//   bodies through the stencil flip identity, as the TPU kernels do. The
+//   weight gradient is a reduction over all B*N rows: on the TPU a grid
+//   carried it in VMEM from step to step; here blocks run in parallel, so
+//   each writes a partial over its split of rows and a second small
+//   kernel adds the splits in a fixed order (deterministic, no atomics).
+//   Bound on the H100: K4 by bytes (x, dy read, dx written), K6 at
+//   C = O = 128 by fp32 CUDA-core operations (4 * 27 * C * O per node).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -186,6 +197,157 @@ conv_fwd_kernel(const T* __restrict__ x, const int* __restrict__ neigh,
   }
 }
 
+// ---- backward weight gradients -------------------------------------------
+// Both reduce over all B*N rows. Block p of the grid sums a contiguous
+// split of rows into a per-split partial in device memory; sum_parts_kernel
+// then adds the splits in a fixed order, so the result is deterministic.
+
+constexpr int kDwCT = 64;   // channels per block (one thread each)
+constexpr int kDwRG = 4;    // row groups per block: 4 x 64 = 256 threads
+
+// partial[p, k, c] = sum_{r in split p} x[src(r, k), c] * dy[r, c]
+template <typename T>
+__global__ void __launch_bounds__(256)
+dwconv_dw_partial_kernel(const T* __restrict__ x, const int* __restrict__ neigh,
+                         const T* __restrict__ dy, float* __restrict__ partial,
+                         int N, int C, long long rows, long long per_part) {
+  __shared__ float red[kDwRG][kTaps][kDwCT];
+  const int cl = threadIdx.x % kDwCT, grp = threadIdx.x / kDwCT;
+  const int c = blockIdx.y * kDwCT + cl;
+  const long long r0 = (long long)blockIdx.x * per_part;
+  const long long r1 = min(rows, r0 + per_part);
+  float acc[kTaps];
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) acc[k] = 0.f;
+  if (c < C) {
+    for (long long r = r0 + grp; r < r1; r += kDwRG) {
+      const float d = to_f(dy[r * C + c]);
+      const long long sb = (r / N) * N;
+      const int* nr = neigh + r * kTaps;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const int j = __ldg(nr + k);
+        if (j >= 0) acc[k] = fmaf(to_f(x[(sb + j) * C + c]), d, acc[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) red[grp][k][cl] = acc[k];
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTaps * kDwCT; i += blockDim.x) {
+    const int k = i / kDwCT, cc = i - k * kDwCT;
+    const int cg = blockIdx.y * kDwCT + cc;
+    if (cg < C)
+      partial[((size_t)blockIdx.x * kTaps + k) * C + cg] =
+          red[0][k][cc] + red[1][k][cc] + red[2][k][cc] + red[3][k][cc];
+  }
+}
+
+constexpr int kWC = 64;     // input channels per block tile
+constexpr int kWO = 64;     // output channels per block tile
+constexpr int kWR = 16;     // rows per shared-memory chunk
+
+// partial[p, k, c, o] = sum_{r in split p} x[src(r, k), c] * dy[r, o]:
+// one block per (C x O tile, tap k, split p), 256 threads with a 4 x 4
+// register tile each. Chunks of 16 rows whose tap-k neighbours are all
+// missing are skipped (sparse taps at the fine depths).
+template <typename T>
+__global__ void __launch_bounds__(256)
+conv_dw_partial_kernel(const T* __restrict__ x, const int* __restrict__ neigh,
+                       const T* __restrict__ dy, float* __restrict__ partial,
+                       int N, int C, int O, int otiles, long long rows,
+                       long long per_part) {
+  __shared__ __align__(16) float xs[kWR][kWC];
+  __shared__ __align__(16) float ds[kWR][kWO];
+  __shared__ long long src[kWR];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;         // outputs tx*4 .. tx*4+3
+  const int ty = tid >> 4;         // channels ty*4 .. ty*4+3
+  const int o0 = (blockIdx.x % otiles) * kWO;
+  const int c0 = (blockIdx.x / otiles) * kWC;
+  const int k = blockIdx.y;
+  const int p = blockIdx.z;
+  const long long r_beg = (long long)p * per_part;
+  const long long r_end = min(rows, r_beg + per_part);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (long long r0 = r_beg; r0 < r_end; r0 += kWR) {
+    bool valid = false;
+    if (tid < kWR) {
+      const long long r = r0 + tid;
+      long long s = -1;
+      if (r < r_end) {
+        const int j = __ldg(neigh + r * kTaps + k);
+        if (j >= 0) s = (r / N) * N + j;
+      }
+      src[tid] = s;
+      valid = s >= 0;
+    }
+    if (!__syncthreads_or(valid)) continue;
+    for (int i = tid; i < kWR * kWC; i += 256) {
+      const int rr = i / kWC, cc = i - rr * kWC;
+      const long long s = src[rr];
+      const int c = c0 + cc;
+      xs[rr][cc] = (s >= 0 && c < C) ? to_f(x[s * C + c]) : 0.f;
+    }
+    for (int i = tid; i < kWR * kWO; i += 256) {
+      const int rr = i / kWO, oo = i - rr * kWO;
+      const int o = o0 + oo;
+      ds[rr][oo] = (src[rr] >= 0 && o < O) ? to_f(dy[(r0 + rr) * O + o])
+                                            : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kWR; ++rr) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[rr][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ds[rr][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = partial + ((size_t)p * kTaps + k) * C * O;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = c0 + ty * 4 + i;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o0 + tx * 4 + j;
+      if (o < O) out[(size_t)c * O + o] = acc[i][j];
+    }
+  }
+}
+
+// out[i] = sum_p partial[p, i], p in order.
+__global__ void __launch_bounds__(256)
+sum_parts_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                 int parts, long long n) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) s += partial[(size_t)p * n + i];
+    out[i] = s;
+  }
+}
+
+cudaError_t launch_sum(const float* partial, float* out, int parts,
+                       long long n, cudaStream_t stream) {
+  long long blocks = (n + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  sum_parts_kernel<<<(unsigned)blocks, 256, 0, stream>>>(partial, out, parts,
+                                                          n);
+  return cudaGetLastError();
+}
+
 template <typename T, int VEC>
 cudaError_t launch_dw(const void* x, const int* neigh, const void* w,
                       void* out, int B, int N, int C, cudaStream_t stream) {
@@ -252,5 +414,101 @@ extern "C" int octree_conv_fwd(const void* x, const void* neigh, const void* w,
     return launch_conv<float>(x, nb, w, bias, out, B, N, C, O, s);
   if (dtype == 1)
     return launch_conv<__nv_bfloat16>(x, nb, w, bias, out, B, N, C, O, s);
+  return cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T>
+cudaError_t dwconv_bwd(const void* x, const int* neigh, const void* wflip,
+                       const void* dy, void* dx, float* partial, float* dw,
+                       int B, int N, int C, int parts, int vec,
+                       cudaStream_t s) {
+  if (dx) {
+    constexpr int V = 16 / sizeof(T);
+    const cudaError_t e =
+        vec ? launch_dw<T, V>(dy, neigh, wflip, dx, B, N, C, s)
+            : launch_dw<T, 1>(dy, neigh, wflip, dx, B, N, C, s);
+    if (e != cudaSuccess) return e;
+  }
+  const long long rows = (long long)B * N;
+  const long long per_part = (rows + parts - 1) / parts;
+  const dim3 grid((unsigned)parts, (C + kDwCT - 1) / kDwCT);
+  dwconv_dw_partial_kernel<T><<<grid, 256, 0, s>>>(
+      static_cast<const T*>(x), neigh, static_cast<const T*>(dy), partial, N,
+      C, rows, per_part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_sum(partial, dw, parts, (long long)kTaps * C, s);
+}
+
+template <typename T>
+cudaError_t conv_bwd(const void* x, const int* neigh, const void* wft,
+                     const void* dy, void* dx, float* partial, float* dw,
+                     int B, int N, int C, int O, int parts, cudaStream_t s) {
+  if (dx) {
+    const cudaError_t e = launch_conv<T>(dy, neigh, wft, nullptr, dx, B, N,
+                                         O, C, s);
+    if (e != cudaSuccess) return e;
+  }
+  const long long rows = (long long)B * N;
+  const long long per_part = (rows + parts - 1) / parts;
+  const int otiles = (O + kWO - 1) / kWO;
+  const dim3 grid((unsigned)(otiles * ((C + kWC - 1) / kWC)), kTaps,
+                  (unsigned)parts);
+  conv_dw_partial_kernel<T><<<grid, 256, 0, s>>>(
+      static_cast<const T*>(x), neigh, static_cast<const T*>(dy), partial, N,
+      C, O, otiles, rows, per_part);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_sum(partial, dw, parts, (long long)kTaps * C * O, s);
+}
+
+}  // namespace
+
+// K4, the backward of octree_dwconv_fwd. x, dy: (B, N, C); wflip: (27, C)
+// = w[::-1] in x's dtype. dx (null to skip) = dwconv(dy, neigh, w[::-1]),
+// the stencil flip identity (neigh[m, k] = n <=> neigh[n, 26 - k] = m; every
+// padding row of neigh is -1), run by the forward kernel's body.
+// dw (27, C) float32 = sum over rows of x[src(r, k)] * dy[r], through
+// partial (parts, 27, C) float32 scratch. vec as for octree_dwconv_fwd,
+// for dy. Returns cudaError_t.
+extern "C" int octree_dwconv_bwd(const void* x, const void* neigh,
+                                 const void* wflip, const void* dy, void* dx,
+                                 void* partial, void* dw, int B, int N, int C,
+                                 int parts, int dtype, int vec, void* stream) {
+  const int* nb = static_cast<const int*>(neigh);
+  float* pt = static_cast<float*>(partial);
+  float* out = static_cast<float*>(dw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (parts < 1) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return dwconv_bwd<float>(x, nb, wflip, dy, dx, pt, out, B, N, C, parts,
+                             vec, s);
+  if (dtype == 1)
+    return dwconv_bwd<__nv_bfloat16>(x, nb, wflip, dy, dx, pt, out, B, N, C,
+                                     parts, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// K6, the backward of octree_conv_fwd (without db, a plain sum the caller
+// takes). x: (B, N, C); dy: (B, N, O); wft: (27, O, C) = swap(w[::-1], 1, 2)
+// in x's dtype. dx (null to skip) = conv(dy, neigh, wft) by the forward
+// kernel's body; dw (27, C, O) float32 through partial (parts, 27, C, O)
+// float32 scratch. Returns cudaError_t.
+extern "C" int octree_conv_bwd(const void* x, const void* neigh,
+                               const void* wft, const void* dy, void* dx,
+                               void* partial, void* dw, int B, int N, int C,
+                               int O, int parts, int dtype, void* stream) {
+  const int* nb = static_cast<const int*>(neigh);
+  float* pt = static_cast<float*>(partial);
+  float* out = static_cast<float*>(dw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (parts < 1 || parts > 65535) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return conv_bwd<float>(x, nb, wft, dy, dx, pt, out, B, N, C, O, parts, s);
+  if (dtype == 1)
+    return conv_bwd<__nv_bfloat16>(x, nb, wft, dy, dx, pt, out, B, N, C, O,
+                                   parts, s);
   return cudaErrorInvalidValue;
 }

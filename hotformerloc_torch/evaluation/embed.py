@@ -31,7 +31,7 @@ def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
         torch.backends.cudnn.allow_tf32 = False
         try:
             with torch.inference_mode():
-                return m(points.to(device), pmask.to(device))
+                return m(points.to(device), pmask.to(device), dtype=dtype)
         finally:
             torch.backends.cudnn.allow_tf32 = prev
 

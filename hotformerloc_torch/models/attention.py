@@ -3,10 +3,13 @@ attention (RTSA core) and attentional pooling.
 
 Counterparts of hotformerloc_tpu/models/attention.py. Logits and softmax
 are fp32 whatever the compute dtype. ``WindowAttention`` has two paths
-over the same parameters: the K1 CUDA kernel (ops/kernels/window_attn.py)
-and the plain einsum formulation (``use_kernels = False``). They differ
-only on query rows whose slot is invalid, which the kernel zeroes and no
-consumer reads.
+over the same parameters: ``WindowAttentionFn`` (ops/kernels/
+window_attn.py: the K1 CUDA kernel forward, K2 backward) and the plain
+einsum formulation differentiated by autograd (``use_kernels = False``).
+They differ only on query rows whose slot is invalid, which the kernel
+zeroes and no consumer reads, so their gradients agree too. Attention
+and projection dropout are 0.0 in every shipped config and not ported
+(``check_supported`` refuses other rates).
 """
 from __future__ import annotations
 

@@ -4,10 +4,15 @@ Counterpart of hotformerloc_tpu/models/backbone.py. The JAX package runs
 the HOTFormer iterations under ``nn.scan`` with stacked parameters; here
 they are a Python loop over an ``nn.ModuleList`` (``iters``), and
 ``convert.params_from_jax`` unstacks the parameters.
+
+DropPath rates follow ``cfg.drop_path_rates()`` in the JAX package's
+block order (backbone.py:369-396): the stem has none, then one rate per
+OctFormer block, then one per HOTFormer iteration, shared by its RTSA
+and its H-OSA blocks.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -52,15 +57,16 @@ class OctFormerStage(nn.Module):
     odd blocks."""
 
     def __init__(self, cfg: ModelConfig, dim: int, num_heads: int,
-                 num_blocks: int, depth: int, device=None):
+                 drop_paths: Sequence[float], depth: int, device=None):
         super().__init__()
-        self.num_blocks = num_blocks
-        for i in range(num_blocks):
+        self.num_blocks = len(drop_paths)
+        for i, dp in enumerate(drop_paths):
             self.add_module(f"block{i}", OctFormerBlock(
                 dim, num_heads, cfg.patch_size,
                 1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
                 not cfg.disable_rpe, cfg.layer_scale,
-                cpe_dense=depth <= cfg.dense_cpe_max_depth, device=device))
+                cpe_dense=depth <= cfg.dense_cpe_max_depth, drop_path=dp,
+                device=device))
 
     def forward(self, x, ctx):
         for i in range(self.num_blocks):
@@ -74,14 +80,14 @@ class HOTFormerIteration(nn.Module):
 
     def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
                  num_heads: Tuple[int, ...], depths: Tuple[int, ...],
-                 device=None):
+                 drop_path: float = 0.0, device=None):
         super().__init__()
         self.use_proj = cfg.use_projections
         self.chunk = cfg.patch_size // cfg.rt_size
         max_ch = max(channels)
         self.rtsa = RelayTokenBlock(
             max_ch, num_heads[channels.index(max_ch)], cfg.mlp_ratio,
-            cfg.layer_scale, device=device)
+            cfg.layer_scale, drop_path, device=device)
         self.levels = len(channels)
         for j in range(self.levels):
             if self.use_proj:
@@ -91,7 +97,7 @@ class HOTFormerIteration(nn.Module):
                 channels[j], num_heads[j], cfg.patch_size, cfg.mlp_ratio,
                 not cfg.disable_rpe, cfg.layer_scale,
                 cpe_dense=depths[j] <= cfg.dense_cpe_max_depth,
-                device=device))
+                drop_path=drop_path, device=device))
             if self.use_proj:
                 self.add_module(f"up_proj{j}", linear(
                     channels[j], max_ch, device=device))
@@ -119,8 +125,8 @@ class HOTFormerStage(nn.Module):
     mean + ADaPE), then num_blocks iterations of [RTSA -> H-OSA]."""
 
     def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
-                 num_heads: Tuple[int, ...], num_blocks: int, depth: int,
-                 device=None):
+                 num_heads: Tuple[int, ...], drop_paths: Sequence[float],
+                 depth: int, device=None):
         super().__init__()
         self.cfg = cfg
         self.channels = tuple(channels)
@@ -139,8 +145,8 @@ class HOTFormerStage(nn.Module):
                     channels[j], max_ch, device=device))
         self.iters = nn.ModuleList(
             HOTFormerIteration(cfg, self.channels, tuple(num_heads),
-                               self.depths, device=device)
-            for _ in range(num_blocks))
+                               self.depths, dp, device=device)
+            for dp in drop_paths)
 
     def forward(self, x, plan: OctreePlan):
         """Returns ({depth: local features}, rt_comb, rt_mask)."""
@@ -156,7 +162,7 @@ class HOTFormerStage(nn.Module):
             rt = ow.masked_window_mean(locals_[j], ctxs[j].node_valid, chunk)
             stats = ow.window_stats(ctxs[j].xyz, ctxs[j].node_valid, d,
                                     chunk, c.adape_mode)
-            pe = self.rt_adape(stats)
+            pe = self.rt_adape(stats, x.dtype)
             if c.use_projections:
                 pe = getattr(self, f"adape_proj{j}")(pe)
             rt = rt + pe
@@ -181,16 +187,21 @@ class HOTFormerBase(nn.Module):
         octf_h, pyr_h = cfg.stage_heads()
         self.patch_embed = PatchEmbed(in_channels, cfg.channels[0],
                                       cfg.stem_down, device=device)
+        rates = cfg.drop_path_rates()
+        used = 0
         d = cfg.transformer_depth
         for i in range(cfg.num_octf_levels):
+            nb = cfg.num_blocks[i]
             self.add_module(f"octf_stage{i}", OctFormerStage(
-                cfg, octf_ch[i], octf_h[i], cfg.num_blocks[i], d,
+                cfg, octf_ch[i], octf_h[i], rates[used:used + nb], d,
                 device=device))
+            used += nb
             self.add_module(f"octf_down{i}", Downsample(
                 cfg.channels[i], cfg.channels[i + 1], device=device))
             d -= 1
-        self.hotf_stage = HOTFormerStage(cfg, pyr_ch, pyr_h,
-                                         cfg.num_blocks[-1], d, device=device)
+        self.hotf_stage = HOTFormerStage(
+            cfg, pyr_ch, pyr_h, rates[used:used + cfg.num_blocks[-1]], d,
+            device=device)
 
     def forward(self, feat, plan: OctreePlan):
         c = self.cfg

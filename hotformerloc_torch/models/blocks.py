@@ -1,7 +1,8 @@
 """Transformer blocks: OctFormer (local windows), H-OSA (windows with one
 relay slot each) and RTSA (relay-token self-attention).
 
-Counterparts of hotformerloc_tpu/models/blocks.py, inference only.
+Counterparts of hotformerloc_tpu/models/blocks.py. Each residual
+branch ends in a DropPath at the block's rate (blocks.py:64-195).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 from torch import nn
 
 from hotformerloc_torch.models.attention import TokenAttention, WindowAttention
-from hotformerloc_torch.models.layers import CPE, LayerScale, Mlp, layer_norm
+from hotformerloc_torch.models.layers import (CPE, DropPath, LayerScale, Mlp,
+                                              layer_norm)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import LevelCtx
 
@@ -22,7 +24,8 @@ class OctFormerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, patch_size: int,
                  dilation: int = 1, mlp_ratio: float = 4.0,
                  use_rpe: bool = True, layer_scale: Optional[float] = None,
-                 cpe_dense: bool = False, device=None):
+                 cpe_dense: bool = False, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
         self.patch_size, self.dilation = patch_size, dilation
         self.use_rpe = use_rpe
@@ -34,6 +37,8 @@ class OctFormerBlock(nn.Module):
         self.norm2 = layer_norm(dim, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, device=device)
         self.ls2 = LayerScale(dim, layer_scale, device=device)
+        self.drop1 = DropPath(drop_path)
+        self.drop2 = DropPath(drop_path)
 
     def forward(self, x, ctx: LevelCtx):
         K, D = self.patch_size, self.dilation
@@ -41,8 +46,9 @@ class OctFormerBlock(nn.Module):
         xw = ow.data_to_windows(x, K, D)
         key_mask = ow.window_key_mask(ctx.node_valid, K, D)
         xyz_w = ow.data_to_windows(ctx.xyz, K, D) if self.use_rpe else None
-        xw = xw + self.ls1(self.attn(self.norm1(xw), key_mask, xyz_w))
-        xw = xw + self.ls2(self.mlp(self.norm2(xw)))
+        xw = xw + self.drop1(self.ls1(self.attn(self.norm1(xw), key_mask,
+                                                xyz_w)))
+        xw = xw + self.drop2(self.ls2(self.mlp(self.norm2(xw))))
         return ow.windows_to_data(xw, K, D)
 
 
@@ -54,7 +60,8 @@ class HOTFormerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, patch_size: int,
                  mlp_ratio: float = 4.0, use_rpe: bool = True,
                  layer_scale: Optional[float] = None,
-                 cpe_dense: bool = False, device=None):
+                 cpe_dense: bool = False, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
         self.patch_size = patch_size
         self.use_rpe = use_rpe
@@ -66,6 +73,8 @@ class HOTFormerBlock(nn.Module):
         self.norm2 = layer_norm(dim, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, device=device)
         self.ls2 = LayerScale(dim, layer_scale, device=device)
+        self.drop1 = DropPath(drop_path)
+        self.drop2 = DropPath(drop_path)
 
     def forward(self, x, rt, ctx: LevelCtx):
         """x: (B, N, C) level nodes; rt: (B, W, C) relay tokens."""
@@ -77,8 +86,9 @@ class HOTFormerBlock(nn.Module):
         t = torch.cat([rt[:, :, None, :], xw], dim=2)        # (B, W, 1+K, C)
         key_mask = torch.cat([rt_valid, node_mask_w], dim=2)
         xyz_w = ow.data_to_windows(ctx.xyz, K) if self.use_rpe else None
-        t = t + self.ls1(self.attn(self.norm1(t), key_mask, xyz_w))
-        t = t + self.ls2(self.mlp(self.norm2(t)))
+        t = t + self.drop1(self.ls1(self.attn(self.norm1(t), key_mask,
+                                              xyz_w)))
+        t = t + self.drop2(self.ls2(self.mlp(self.norm2(t))))
         return ow.windows_to_data(t[:, :, 1:], K), t[:, :, 0]
 
 
@@ -87,7 +97,8 @@ class RelayTokenBlock(nn.Module):
     relay tokens (B, M, C)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 layer_scale: Optional[float] = None, device=None):
+                 layer_scale: Optional[float] = None, drop_path: float = 0.0,
+                 device=None):
         super().__init__()
         self.norm1 = layer_norm(dim, device=device)
         self.attn = TokenAttention(dim, num_heads, device=device)
@@ -95,7 +106,9 @@ class RelayTokenBlock(nn.Module):
         self.norm2 = layer_norm(dim, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, device=device)
         self.ls2 = LayerScale(dim, layer_scale, device=device)
+        self.drop1 = DropPath(drop_path)
+        self.drop2 = DropPath(drop_path)
 
     def forward(self, rt, rt_mask):
-        rt = rt + self.ls1(self.attn(self.norm1(rt), rt_mask))
-        return rt + self.ls2(self.mlp(self.norm2(rt)))
+        rt = rt + self.drop1(self.ls1(self.attn(self.norm1(rt), rt_mask)))
+        return rt + self.drop2(self.ls2(self.mlp(self.norm2(rt))))

@@ -197,6 +197,9 @@ def check_supported(cfg: ModelConfig) -> None:
         unsupported.append("downsample_input_embeddings=False")
     if cfg.adape_mode != "cov":
         unsupported.append(f"adape_mode={cfg.adape_mode!r}")
+    for name in ("proj_drop", "attn_drop"):     # 0.0 in every shipped config
+        if getattr(cfg, name) != 0.0:
+            unsupported.append(f"{name}={getattr(cfg, name)}")
     if unsupported:
         raise NotImplementedError(
             "hotformerloc_torch does not support: " + ", ".join(unsupported))

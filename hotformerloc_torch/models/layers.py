@@ -1,13 +1,17 @@
-"""Core layers: Linear init, MLP, LayerNorm, octree conv blocks, CPE,
-ADaPE, LayerScale, and the parameter initialisers.
+"""Core layers: Linear, MLP, LayerNorm, octree conv blocks, CPE, ADaPE,
+LayerScale, DropPath, and the parameter initialisers.
 
-Counterparts of hotformerloc_tpu/models/layers.py (inference only:
-dropout and DropPath are the identity). Parameter layouts follow the JAX
-package so that ``convert.params_from_jax`` is a rename: conv weights
-are (taps, C, O), depthwise weights (27, C, 1), RPE tables (3*num, H).
+Counterparts of hotformerloc_tpu/models/layers.py. Parameter layouts
+follow the JAX package so that ``convert.params_from_jax`` is a rename:
+conv weights are (taps, C, O), depthwise weights (27, C, 1), RPE tables
+(3*num, H).
 
-Compute dtype is the parameters' dtype (``model.to(torch.bfloat16)`` for
-bf16 serving); softmax logits stay fp32.
+Compute dtype is the activations' dtype, the flax way: every module
+casts its (fp32) parameters to the dtype of its input at use
+(``Dense(dtype=bf16)`` with fp32 params, ``w.astype(self.dtype)`` in the
+convs), so a bf16 step keeps fp32 parameters and fp32 gradients. A
+model converted with ``.to(torch.bfloat16)`` (bf16 serving) casts
+nothing. Softmax logits stay fp32.
 
 Kernel routing: modules with a ``use_kernels`` attribute send stride-1
 convs through the CUDA kernels of ops/kernels (whose CPU path is the
@@ -69,17 +73,37 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             p.copy_(t)
 
 
-def linear(fin: int, fout: int, bias: bool = True, device=None) -> nn.Linear:
-    """nn.Linear with trunc-normal(0.02) weight and zero bias."""
-    m = nn.Linear(fin, fout, bias=bias, device=device)
+def cast(p: Optional[torch.Tensor], x: torch.Tensor):
+    """Parameter p in x's dtype (p itself when it already is)."""
+    return None if p is None else p.to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, cast(self.weight, x), cast(self.bias, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm computing in its input's dtype."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, cast(self.weight, x),
+                            cast(self.bias, x), self.eps)
+
+
+def linear(fin: int, fout: int, bias: bool = True, device=None) -> Linear:
+    """Linear with trunc-normal(0.02) weight and zero bias."""
+    m = Linear(fin, fout, bias=bias, device=device)
     tag(m.weight, "trunc", 0.02)
     if bias:
         tag(m.bias, "const", 0.0)
     return m
 
 
-def layer_norm(dim: int, device=None) -> nn.LayerNorm:
-    m = nn.LayerNorm(dim, eps=1e-5, device=device)
+def layer_norm(dim: int, device=None) -> LayerNorm:
+    m = LayerNorm(dim, eps=1e-5, device=device)
     tag(m.weight, "const", 1.0)
     tag(m.bias, "const", 0.0)
     return m
@@ -106,21 +130,47 @@ class LayerScale(nn.Module):
                       else param((dim,), "const", init, device=device))
 
     def forward(self, x):
-        return x if self.gamma is None else x * self.gamma
+        return x if self.gamma is None else x * cast(self.gamma, x)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth on a residual branch (timm; the JAX
+    DropPath, hotformerloc_tpu/models/layers.py:429-451): x * mask[b]
+    with mask[b] in {0, 1/keep}.
+
+    The mask is drawn outside (``HOTFormerLoc.draw_drop_masks``) and set
+    in ``self.mask`` (B,) before a forward, so that a recomputed forward
+    (stage 3 of the multistage step) sees the same masks. Identity when
+    no mask is set: in eval mode, or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.mask: Optional[torch.Tensor] = None
+
+    def forward(self, x):
+        if self.mask is None:
+            return x
+        m = self.mask.to(device=x.device, dtype=x.dtype)
+        return x * m.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 class _KernelRouted(nn.Module):
+    """Routes stride-1 convs through the kernels' autograd Functions
+    (``use_kernels``) or the plain tensor code; weights are cast to the
+    activation dtype either way (the Functions cast inside, so their
+    weight gradients come back fp32)."""
     use_kernels = True
 
     def conv(self, x, neigh, w, b):
         if self.use_kernels:
             return kconv.octree_conv(x, neigh, w, b)
-        return plain.octree_conv(x, neigh, w, b)
+        return plain.octree_conv(x, neigh, cast(w, x), cast(b, x))
 
     def dwconv(self, x, neigh, w):
         if self.use_kernels:
             return kconv.octree_dwconv(x, neigh, w)
-        return plain.octree_dwconv(x, neigh, w)
+        return plain.octree_dwconv(x, neigh, cast(w, x))
 
 
 class OctreeConvNormRelu(_KernelRouted):
@@ -148,8 +198,9 @@ class Downsample(nn.Module):
         self.norm = layer_norm(cout, device=device)
 
     def forward(self, x, children):
-        y = self.norm(plain.octree_down_conv(x, children, self.kernel,
-                                             self.bias))
+        y = self.norm(plain.octree_down_conv(x, children,
+                                             cast(self.kernel, x),
+                                             cast(self.bias, x)))
         return F.relu(y) if self.relu else y
 
 
@@ -186,8 +237,8 @@ class ADaPE(nn.Module):
         super().__init__()
         self.mlp = Mlp(nstats, dim, dim, device=device)
 
-    def forward(self, stats):
-        return self.mlp(stats.to(self.mlp.fc1.weight.dtype))
+    def forward(self, stats, dtype: torch.dtype):
+        return self.mlp(stats.to(dtype))
 
 
 def rpe_pos_bnd(patch_size: int, dilation: int) -> int:

@@ -1,9 +1,11 @@
-"""Octree convolutions in plain PyTorch (forward only).
+"""Octree convolutions in plain PyTorch.
 
 Counterparts of hotformerloc_tpu/ops/conv.py. ``octree_conv`` and
-``octree_dwconv`` are also the plain versions of the CUDA kernels in
+``octree_dwconv`` with their explicit gradients ``octree_conv_bwd`` and
+``octree_dwconv_bwd`` are the plain versions of the CUDA kernels in
 ops/kernels/octree_conv.py; the down-conv and the dense-grid depthwise
-conv stay plain tensor code, as XLA computed them in the JAX package.
+conv stay plain tensor code differentiated by autograd, as XLA computed
+them in the JAX package.
 """
 from __future__ import annotations
 
@@ -51,6 +53,34 @@ def octree_dwconv(x: torch.Tensor, neigh: torch.Tensor,
     return torch.einsum("bnkc,kc->bnc", g.float(), w.float()).to(x.dtype)
 
 
+def octree_dwconv_bwd(x: torch.Tensor, neigh: torch.Tensor, w: torch.Tensor,
+                      dy: torch.Tensor, need_dx: bool = True):
+    """Gradients of ``octree_dwconv`` (the plain version of K4):
+    dx = octree_dwconv(dy, neigh, w[::-1]) by the stencil flip identity
+    neigh[m, k] = n <=> neigh[n, K-1-k] = m, which holds for the 27-tap
+    tables because padding rows are all -1; dw[k, c] = sum_{b,n}
+    x[b, neigh[b,n,k], c] * dy[b, n, c]. Returns (dx in x's dtype or
+    None, dw fp32)."""
+    dx = octree_dwconv(dy, neigh, w.flip(0)) if need_dx else None
+    g = _gather_rows(x, neigh)                       # (B, N, K, C)
+    dw = torch.einsum("bnkc,bnc->kc", g.float(), dy.float())
+    return dx, dw
+
+
+def octree_conv_bwd(x: torch.Tensor, neigh: torch.Tensor, w: torch.Tensor,
+                    dy: torch.Tensor, need_dx: bool = True):
+    """Gradients of ``octree_conv`` (the plain version of K6):
+    dx = octree_conv(dy, neigh, flip-transpose(w)) with flip-transpose(w)
+    = swap(w[::-1], 1, 2); dw[k, c, o] = sum_{b,n} x[b, neigh[b,n,k], c] *
+    dy[b, n, o]; db = sum_{b,n} dy[b, n] over every row, padding rows
+    included. Returns (dx in x's dtype or None, dw fp32, db fp32)."""
+    dx = (octree_conv(dy, neigh, w.flip(0).transpose(1, 2), None)
+          if need_dx else None)
+    g = _gather_rows(x, neigh)                       # (B, N, K, C)
+    dw = torch.einsum("bnkc,bno->kco", g.float(), dy.float())
+    return dx, dw, dy.float().sum((0, 1))
+
+
 def octree_down_conv(x: torch.Tensor, children: torch.Tensor,
                      w: torch.Tensor,
                      b: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -87,6 +117,42 @@ def dense_voxel_index(keys: torch.Tensor, counts: torch.Tensor,
     return lookup(keys, counts, q[None].expand(B, -1))
 
 
+class DepthwiseConv3d(torch.autograd.Function):
+    """conv3d(x, wk, padding=1, groups=C) for x (B, C, D, D, D), wk
+    (C, 1, 3, 3, 3): cuDNN's forward, and an explicit backward by the 27
+    shifted products in fp32. Autograd's own backward goes through
+    cuDNN's grouped 3-D weight-gradient engine, which launches one kernel
+    per channel and made the dense-grid CPE most of the train step's
+    device time on the H100 (hotformerloc_torch/tools/profile_step.py)."""
+
+    @staticmethod
+    def forward(ctx, x, wk):
+        ctx.save_for_backward(x, wk)
+        return F.conv3d(x, wk, padding=1, groups=x.shape[1])
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, wk = ctx.saved_tensors
+        B, C, D = x.shape[:3]
+        xp = F.pad(x.float(), (1,) * 6)
+        gp = F.pad(dout.float(), (1,) * 6)
+        g = dout.float()
+        w = wk.reshape(C, 27).float()
+        dx = torch.zeros_like(g) if ctx.needs_input_grad[0] else None
+        dw = torch.empty((C, 27), dtype=torch.float32, device=x.device)
+        # out[z] = sum_k w[k] xp[z + k]  =>  dx[i] = sum_k w[k] gp[i + 2 - k]
+        for k in range(27):
+            a, b, c = k // 9, (k // 3) % 3, k % 3
+            dw[:, k] = (xp[:, :, a:a + D, b:b + D, c:c + D] * g).sum(
+                (0, 2, 3, 4))
+            if dx is not None:
+                dx.add_(gp[:, :, 2 - a:2 - a + D, 2 - b:2 - b + D,
+                           2 - c:2 - c + D] * w[:, k].view(1, C, 1, 1, 1))
+        return (None if dx is None else dx.to(x.dtype),
+                dw.view(C, 1, 3, 3, 3).to(wk.dtype)
+                if ctx.needs_input_grad[1] else None)
+
+
 def octree_dwconv_dense(x: torch.Tensor, xyz: torch.Tensor,
                         valid: torch.Tensor, w: torch.Tensor, depth: int,
                         vox_idx: torch.Tensor) -> torch.Tensor:
@@ -100,7 +166,7 @@ def octree_dwconv_dense(x: torch.Tensor, xyz: torch.Tensor,
     dense = _gather_rows(x, vox_idx)                 # (B, V, C)
     dense = dense.reshape(B, D, D, D, C).permute(0, 4, 1, 2, 3)
     wk = w.t().reshape(C, 1, 3, 3, 3).to(x.dtype)
-    out = F.conv3d(dense, wk, padding=1, groups=C)   # (B, C, D, D, D)
+    out = DepthwiseConv3d.apply(dense, wk)           # (B, C, D, D, D)
     out = out.permute(0, 2, 3, 4, 1).reshape(B, D ** 3, C)
     vid = (xyz[..., 0] * D + xyz[..., 1]) * D + xyz[..., 2]
     vid = torch.where(valid, vid, torch.full_like(vid, -1))

@@ -4,12 +4,20 @@ Each source under hotformerloc_torch/csrc/ is compiled by ``nvcc`` at
 first use into a shared library with a plain C interface, loaded with
 ctypes (build.py). A wrapper launches its kernel on a CUDA tensor and
 takes the plain PyTorch version beside it only for a CPU tensor; a
-build or launch error raises. ``LAUNCHES`` counts kernel launches per
-kernel name, so a run can show that it went through the kernels.
+build or launch error raises. Every kernel call goes through a
+``torch.autograd.Function`` whose backward is the matching backward
+kernel, so gradients flow through the kernels.
+
+``LAUNCHES`` counts wrapper calls that launched on the card, per kernel
+name, so a run can show that it went through the kernels. A backward
+entry point counts once under its own name, whichever kernel bodies it
+runs (dx of the convs reuses the forward bodies).
 """
 from __future__ import annotations
 
-LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0}
+LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
+            "window_attn_bwd": 0, "octree_dwconv_bwd": 0,
+            "octree_conv_bwd": 0}
 
 
 def reset_launches() -> None:

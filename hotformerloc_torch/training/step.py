@@ -1,0 +1,205 @@
+"""Training and evaluation steps, including multistage large-batch
+backprop and MESA (EMA distillation).
+
+Counterpart of hotformerloc_tpu/training/step.py. The multistage step
+trains on a batch of B clouds as accum_steps microbatches:
+
+1. one octree and plan per microbatch, built once for both passes;
+2. stage 1: every microbatch's embeddings without gradients, the model
+   in train mode;
+3. stage 2: the fp32 loss over all B embeddings and its gradient with
+   respect to them;
+4. stage 3: per microbatch, the forward again with gradients and
+   ``emb.backward(g_emb)``, accumulating the fp32 parameter gradients;
+5. the optimizer update, the optional EMA, and the gradient norm.
+
+The DropPath masks of microbatch i are drawn from a generator seeded
+from (seed, i), so stages 1 and 3 see the same masks and the recomputed
+embeddings equal the first ones. The compute dtype is the model's
+(``HOTFormerLoc(dtype=...)``); parameters and gradients stay fp32.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+
+from hotformerloc_torch.losses.losses import kd_loss
+from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
+                                                    build_model_plan)
+
+Batch = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    accum_steps: int = 1          # microbatches per step (multistage BP)
+    ema_decay: float = 0.9998     # EMA decay of the teacher weights
+    mesa: float = 0.0             # MESA weight; > 0 enables distillation
+    use_ema: bool = False
+    # Also report max |stage-3 embedding - stage-1 embedding| as the stat
+    # 'recompute_max_abs' (multistage only; costs one small reduction).
+    check_recompute: bool = False
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step changes besides the model's parameters and the
+    optimizer's moments: the update count and the EMA teacher."""
+    step: int = 0
+    ema_model: Optional[HOTFormerLoc] = None
+
+
+def drop_generator(seed: int, micro: int) -> torch.Generator:
+    """The CPU generator of microbatch ``micro``'s DropPath masks."""
+    return torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + int(micro)) % (2 ** 63))
+
+
+def _grad_norm(params) -> torch.Tensor:
+    return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
+
+
+class TrainStep:
+    """``step(batch, seed) -> stats``. batch: {'points': (B, P, 3),
+    'pmask': (B, P), 'positives_mask': (B, B), 'negatives_mask': (B, B)}
+    on the model's device. Stats are 0-d tensors with the JAX step's
+    keys: the loss's, 'octree_overflow', 'band_overflow' (0 here) and
+    'grad_norm'. After a step every parameter's ``.grad`` holds that
+    step's gradient."""
+
+    def __init__(self, model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
+                 loss_fn: Callable, cfg: StepConfig = StepConfig()):
+        self.model, self.optimizer, self.loss_fn, self.cfg = (
+            model, optimizer, loss_fn, cfg)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        ema = None          # MESA needs the EMA teacher, as in JAX
+        if cfg.use_ema:
+            ema = copy.deepcopy(model).eval().requires_grad_(False)
+        self.state = TrainState(step=0, ema_model=ema)
+
+    def _teacher(self, points, pmask, plan=None):
+        ema = self.state.ema_model
+        if self.cfg.mesa <= 0.0 or ema is None:
+            return None
+        with torch.no_grad():
+            return ema(points, pmask, plan=plan)["global"]
+
+    def __call__(self, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        if self.cfg.accum_steps <= 1:
+            stats = self._single_pass(batch, seed)
+        else:
+            stats = self._multistage(batch, seed)
+        return self._finish(stats)
+
+    def _single_pass(self, batch: Batch, seed: int):
+        m = self.model
+        pts, msk = batch["points"], batch["pmask"]
+        masks = m.draw_drop_masks(pts.shape[0], drop_generator(seed, 0))
+        out = m(pts, msk, drop_masks=masks)
+        emb = out["global"]
+        loss, stats = self.loss_fn(emb, batch["positives_mask"],
+                                   batch["negatives_mask"])
+        t_emb = self._teacher(pts, msk)
+        if t_emb is not None:
+            loss = loss + self.cfg.mesa * kd_loss(emb, t_emb)
+        loss.backward()
+        stats = dict(stats, octree_overflow=out["octree_overflow"],
+                     band_overflow=out["band_overflow"])
+        return stats
+
+    def _multistage(self, batch: Batch, seed: int):
+        m, A = self.model, self.cfg.accum_steps
+        pts, msk = batch["points"], batch["pmask"]
+        B = pts.shape[0]
+        if B % A:
+            raise ValueError(f"batch {B} is not a multiple of "
+                             f"accum_steps {A}")
+        mb = B // A
+        chunks = [slice(i * mb, (i + 1) * mb) for i in range(A)]
+        with torch.no_grad():
+            plans = [build_model_plan(m.cfg, pts[sl], msk[sl])
+                     for sl in chunks]
+        masks = [m.draw_drop_masks(mb, drop_generator(seed, i))
+                 for i in range(A)]
+
+        # Stage 1: embeddings without parameter gradients.
+        embs, t_embs, ovf = [], [], []
+        with torch.no_grad():
+            for i, sl in enumerate(chunks):
+                out = m(pts[sl], msk[sl], plan=plans[i], drop_masks=masks[i])
+                embs.append(out["global"])
+                ovf.append(out["octree_overflow"])
+                t = self._teacher(pts[sl], msk[sl], plans[i])
+                if t is not None:
+                    t_embs.append(t)
+        emb = torch.cat(embs).detach().requires_grad_(True)
+
+        # Stage 2: loss over the full batch, gradient w.r.t. embeddings.
+        with torch.enable_grad():
+            loss, stats = self.loss_fn(emb, batch["positives_mask"],
+                                       batch["negatives_mask"])
+            if t_embs:
+                loss = loss + self.cfg.mesa * kd_loss(emb, torch.cat(t_embs))
+            (g_emb,) = torch.autograd.grad(loss, emb)
+        stats = dict(stats, octree_overflow=torch.stack(ovf).sum(),
+                     band_overflow=plans[0].band_overflow())
+
+        # Stage 3: recompute per microbatch, chain rule into the params.
+        diff = []
+        for i, sl in enumerate(chunks):
+            out = m(pts[sl], msk[sl], plan=plans[i], drop_masks=masks[i])
+            out["global"].backward(g_emb[sl])
+            if self.cfg.check_recompute:
+                diff.append((out["global"].detach() - embs[i]).abs().max())
+        if diff:
+            stats["recompute_max_abs"] = torch.stack(diff).max()
+        return stats
+
+    def _finish(self, stats):
+        for p in self.params:       # JAX gives zeros, not None, to unused
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        stats["grad_norm"] = _grad_norm(self.params)
+        lr = self.optimizer.schedule(self.state.step)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        ema = self.state.ema_model
+        if self.cfg.use_ema and ema is not None:
+            d = self.cfg.ema_decay
+            with torch.no_grad():
+                e_params = list(ema.parameters())
+                torch._foreach_mul_(e_params, d)
+                torch._foreach_add_(e_params, list(self.model.parameters()),
+                                    alpha=1.0 - d)
+        self.state.step += 1
+        return stats
+
+
+def make_train_step(model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
+                    loss_fn: Callable, cfg: StepConfig = StepConfig()
+                    ) -> TrainStep:
+    """The train step: single pass for accum_steps <= 1, else the
+    multistage step. The optimizer comes from ``make_optimizer`` (it
+    carries the learning-rate schedule)."""
+    return TrainStep(model, optimizer, loss_fn, cfg)
+
+
+def make_eval_step(model: HOTFormerLoc, loss_fn: Callable):
+    """Validation step: embeddings (eval mode, no gradients) + loss
+    stats."""
+
+    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.no_grad():
+            out = model(batch["points"], batch["pmask"])
+            _, stats = loss_fn(out["global"], batch["positives_mask"],
+                               batch["negatives_mask"])
+        return stats
+
+    return eval_step

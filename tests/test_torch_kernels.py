@@ -8,10 +8,17 @@ and against the flat JAX ops, to 1e-5:
 * K5 octree_conv vs banded_conv and ops/conv.octree_conv, on neighbour
   tables of real octrees whose JAX band tables report no overflow.
 
+Their gradients, through the autograd Functions whose backward is K2, K4
+and K6 on the card and the plain backward here, are held against
+jax.vjp of the same ops (dq/dk/dv/dx to 1e-5; the RPE table and conv
+weight gradients to 1e-4), and the plain backwards against autograd of
+the plain forwards, on the port's real tables (flip identity included).
+
 The kernels themselves run only on the card: chip_smoke.py holds each
 against its plain version there. Here the wrappers must refuse any
 device that is neither CPU nor CUDA, and a missing nvcc must raise.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,3 +202,233 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_nvcc_default", str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build_all()
+
+
+# -- backward: K2, K4, K6 through their autograd Functions ------------------
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+@pytest.mark.parametrize("use_rpe,G", [(True, 0), (True, 1), (False, 0),
+                                       (False, 1)])
+def test_window_attn_grads_match_pallas_vjp(use_rpe, G):
+    """K2 via WindowAttentionFn on the CPU (the plain backward) against
+    jax.vjp of the Pallas op in interpret mode: dq, dk, dv to 1e-5 and
+    the RPE table gradient to 1e-4, with a window that has invalid rows
+    (1) and one that is all invalid (3)."""
+    q, k, v, xyz, mask, table, H, bnd = _attn_inputs(20 + G + 2 * use_rpe, G)
+    g = np.random.default_rng(G).standard_normal(q.shape).astype(np.float32)
+
+    def f(q_, k_, v_, tab_):
+        return fused_window_attention(q_, k_, v_, jnp.asarray(xyz),
+                                      jnp.asarray(mask), tab_, H, 1, bnd,
+                                      use_rpe, 8, True, 32)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v, table)))
+    ref = [np.asarray(r) for r in vjp(jnp.asarray(g))]
+    ins = [_t(q, True), _t(k, True), _t(v, True), _t(table, True)]
+    out = kattn.window_attention(ins[0], ins[1], ins[2], _t(xyz), _t(mask),
+                                 ins[3], H, bnd, use_rpe)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(g))
+    for t, r, name in zip(ins, ref, ("dq", "dk", "dv", "dtable")):
+        np.testing.assert_allclose(t.grad.numpy(), r, rtol=0,
+                                   atol=1e-4 if name == "dtable" else 1e-5,
+                                   err_msg=name)
+    assert np.all(ins[0].grad.numpy()[mask == 0] == 0.0)
+
+
+def test_window_attn_fn_wiring_and_plain_grads():
+    """needs_input_grad: only the asked-for gradients come back; the plain
+    backward equals autograd through the plain forward; bf16 inputs give
+    bf16 dq/dk/dv and an fp32 table gradient."""
+    q, k, v, xyz, mask, table, H, bnd = _attn_inputs(31, 1)
+    qt, kt, vt, tt = _t(q, True), _t(k), _t(v, True), _t(table, True)
+    out = kattn.window_attention(qt, kt, vt, _t(xyz), _t(mask), tt, H, bnd)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(g)
+    assert kt.grad is None and qt.grad is not None
+    q2, v2, t2 = _t(q, True), _t(v, True), _t(table, True)
+    ref = kattn.window_attention_reference(q2, _t(k), v2, _t(xyz), _t(mask),
+                                           t2, H, bnd)
+    want = torch.autograd.grad(ref, (q2, v2, t2), g)
+    for got, w in zip((qt.grad, vt.grad, tt.grad), want):
+        np.testing.assert_allclose(got.numpy(), w.numpy(), rtol=0, atol=1e-5)
+    qb, kb, vb = (_t(a).to(torch.bfloat16).requires_grad_() for a in (q, k, v))
+    tb = _t(table, True)
+    ob = kattn.window_attention(qb, kb, vb, _t(xyz), _t(mask), tb, H, bnd)
+    ob.backward(g.to(torch.bfloat16))
+    assert qb.grad.dtype == torch.bfloat16 and tb.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("C", [32, 48])
+def test_dwconv_grads_match_banded_and_flat_vjp(octree_tables, C):
+    """K4 via OctreeDwconvFn: dx to 1e-5, dw to 1e-4, against the vjp of
+    banded_dwconv (interpret) and of the flat op."""
+    neigh, bt, loc = octree_tables
+    rng = np.random.default_rng(100 + C)
+    x = rng.standard_normal((2, neigh.shape[1], C)).astype(np.float32)
+    w = (rng.standard_normal((27, C)) * 0.2).astype(np.float32)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    jn = jnp.asarray(neigh)
+    refs = []
+    for f in (lambda x_, w_: jband.banded_dwconv(x_, loc, w_, bt, True),
+              lambda x_, w_: jconv.octree_dwconv(x_, jn, w_)):
+        _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+        refs.append([np.asarray(r) for r in vjp(jnp.asarray(dy))])
+    xt, wt = _t(x, True), _t(w, True)
+    out = kconv.octree_dwconv(xt, torch.from_numpy(neigh), wt)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(dy))
+    for dx_ref, dw_ref in refs:
+        np.testing.assert_allclose(xt.grad.numpy(), dx_ref, rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(wt.grad.numpy(), dw_ref, rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("C,O", [(32, 32), (64, 48)])
+def test_conv_grads_match_banded_and_flat_vjp(octree_tables, C, O):
+    """K6 via OctreeConvFn: dx to 1e-5, dw and db to 1e-4, against the vjp
+    of banded_conv (interpret) and of the flat op."""
+    neigh, bt, loc = octree_tables
+    rng = np.random.default_rng(200 + C + O)
+    x = rng.standard_normal((2, neigh.shape[1], C)).astype(np.float32)
+    w = (rng.standard_normal((27, C, O)) / np.sqrt(27 * C)).astype(np.float32)
+    b = rng.standard_normal(O).astype(np.float32)
+    dy = rng.standard_normal((2, neigh.shape[1], O)).astype(np.float32)
+    jn = jnp.asarray(neigh)
+    refs = []
+    for f in (lambda x_, w_, b_: jband.banded_conv(x_, loc, w_, b_, bt, True),
+              lambda x_, w_, b_: jconv.octree_conv(x_, jn, w_, b_)):
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, w, b)))
+        refs.append([np.asarray(r) for r in vjp(jnp.asarray(dy))])
+    ins = [_t(x, True), _t(w, True), _t(b, True)]
+    out = kconv.octree_conv(ins[0], torch.from_numpy(neigh), ins[1], ins[2])
+    out.backward(torch.from_numpy(dy))
+    for ref in refs:
+        for t, r, tol in zip(ins, ref, (1e-5, 1e-4, 1e-4)):
+            np.testing.assert_allclose(t.grad.numpy(), r, rtol=0, atol=tol)
+
+
+def test_conv_grads_c3_without_dx(octree_tables):
+    """The stem's first conv: C = 3, x (the input features) needs no
+    gradient, so the Function skips dx; dw and db equal the flat op's."""
+    neigh, _, _ = octree_tables
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((2, neigh.shape[1], 3)).astype(np.float32)
+    w = (rng.standard_normal((27, 3, 8)) / 9.0).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    dy = rng.standard_normal((2, neigh.shape[1], 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda w_, b_: jconv.octree_conv(
+        jnp.asarray(x), jnp.asarray(neigh), w_, b_), jnp.asarray(w),
+        jnp.asarray(b))
+    dw_ref, db_ref = (np.asarray(r) for r in vjp(jnp.asarray(dy)))
+    xt, wt, bt_ = _t(x), _t(w, True), _t(b, True)
+    out = kconv.octree_conv(xt, torch.from_numpy(neigh), wt, bt_)
+    out.backward(torch.from_numpy(dy))
+    assert xt.grad is None
+    np.testing.assert_allclose(wt.grad.numpy(), dw_ref, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(bt_.grad.numpy(), db_ref, rtol=0, atol=1e-4)
+    dx, dw, db = kconv.octree_conv_bwd(xt, torch.from_numpy(neigh), wt.detach(),
+                                       torch.from_numpy(dy), need_dx=False)
+    assert dx is None and dw.dtype == torch.float32
+
+
+@pytest.fixture(scope="module")
+def padded_tables():
+    """Every 27-tap table of a port octree whose levels hold padding rows
+    (counts below capacity)."""
+    from hotformerloc_torch.octree.build import build_batched_octree
+    from hotformerloc_torch.ops.plan import build_plan
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(-0.9, 0.9, (2, 700, 3)).astype(np.float32)
+    pm = np.ones((2, 700), bool)
+    pm[1, 400:] = False
+    ot = build_batched_octree(torch.from_numpy(pts), torch.from_numpy(pm), 5,
+                              3, (512, 640, 768))
+    tables = build_plan(ot).neighs
+    counts = [ot.count(d) for d in range(3, 6)]
+    assert all(int(c.min()) < t.shape[1] for c, t in zip(counts, tables))
+    return tables
+
+
+def test_flip_identity_on_port_tables(padded_tables):
+    """neigh[m, k] = n <=> neigh[n, 26 - k] = m on every level, padding
+    rows (all -1) included: the identity behind dx of K4 and K6."""
+    for neigh in padded_tables:
+        nb = neigh.numpy()
+        B, N, K = nb.shape
+        b, m, k = np.nonzero(nb >= 0)
+        n = nb[b, m, k]
+        assert np.all(nb[b, n, K - 1 - k] == m)
+        fwd = np.zeros((B, N, K), int)
+        fwd[b, n, K - 1 - k] = 1
+        assert np.array_equal(fwd, (nb >= 0).astype(int))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_plain_bwd_equals_autograd(padded_tables, dtype):
+    """The Functions' plain backward (flip identity + einsum) equals
+    torch.autograd.grad of the plain forward (gather + scatter-add) on
+    tables with padding rows; bf16 to one rounding of the output."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator().manual_seed(5)
+    for neigh in padded_tables:
+        B, N, _ = neigh.shape
+        x = torch.randn(B, N, 16, generator=gen).to(dtype).requires_grad_()
+        wd = (0.2 * torch.randn(27, 16, generator=gen)).requires_grad_()
+        w = (0.05 * torch.randn(27, 16, 12, generator=gen)).requires_grad_()
+        b = torch.randn(12, generator=gen).requires_grad_()
+        for fn, plain_fn, args in (
+                (kconv.octree_dwconv, tconv.octree_dwconv, (wd,)),
+                (kconv.octree_conv, tconv.octree_conv, (w, b))):
+            out = fn(x, neigh, *args)
+            dy = torch.randn(out.shape, generator=gen).to(dtype)
+            got = torch.autograd.grad(out, (x, *args), dy)
+            ref = plain_fn(x, neigh, *(a.to(dtype) for a in args))
+            want = torch.autograd.grad(ref, (x, *args), dy)
+            for gt, wt in zip(got, want):
+                assert gt.dtype == wt.dtype
+                np.testing.assert_allclose(gt.float().numpy(),
+                                           wt.float().numpy(), rtol=tol,
+                                           atol=tol)
+
+
+def test_wrapper_outputs_carry_grad_fn():
+    """Every wrapper's output on an input that requires grad carries its
+    Function's grad_fn (Function.apply attaches it on any device, so the
+    kernels' outputs on the card are never cut from the graph)."""
+    x = torch.randn(1, 5, 4, requires_grad=True)
+    nb = torch.full((1, 5, 27), -1, dtype=torch.int32)
+    nb[0, :, 13] = torch.arange(5, dtype=torch.int32)
+    w = torch.randn(27, 4, requires_grad=True)
+    assert type(kconv.octree_dwconv(x, nb, w).grad_fn).__name__ \
+        == "OctreeDwconvFnBackward"
+    assert type(kconv.octree_conv(x, nb, torch.randn(27, 4, 3),
+                                  None).grad_fn).__name__ \
+        == "OctreeConvFnBackward"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_depthwise_conv3d_backward_equals_autograd(dtype):
+    """The dense-grid CPE's explicit backward (27 shifted products) equals
+    autograd through F.conv3d (groups=C, padding 1); bf16 to one rounding
+    of the input gradient."""
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 6, 8, 8, 8, generator=gen).to(dtype).requires_grad_()
+    wk = (0.3 * torch.randn(6, 1, 3, 3, 3, generator=gen)).requires_grad_()
+    out = tconv.DepthwiseConv3d.apply(x, wk.to(dtype))
+    ref = torch.nn.functional.conv3d(x.float(), wk, padding=1, groups=6)
+    np.testing.assert_allclose(out.float().detach().numpy(),
+                               ref.detach().numpy(), rtol=0,
+                               atol=1e-5 if dtype == torch.float32 else 5e-2)
+    g = torch.randn(out.shape, generator=gen)
+    got = torch.autograd.grad(out, (x, wk), g.to(dtype))
+    want = torch.autograd.grad(ref, (x, wk), g)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=tol,
+                                   atol=tol * max(1.0, float(b.abs().max())))

@@ -1,0 +1,333 @@
+"""The training slice of hotformerloc_torch against the JAX package, on
+the CPU (where the kernel Functions run their plain forward and backward):
+
+* the four losses: value and gradient against JAX (rtol 1e-5, with an
+  absolute floor of 1e-5 max |g| for entries near zero);
+* lr_schedule and five Adam (L2 weight decay) / AdamW steps against
+  optax (rtol 1e-6; atol 1e-6 on the parameters, see the test);
+* tiny_test_config model gradients of truncated_smoothap against
+  jax.grad, mapped by name through params_from_jax, with kernel routing
+  on and off: loss rtol 1e-5, each tensor |dg| <= 1e-3 |g_jax| + 1e-8;
+* the multistage step (accum 4) against the single pass, to the bar of
+  tests/test_train_step.py;
+* DropPath: per-sample masks scaled by 1/keep, rates in block order,
+  equal stage-1 / stage-3 embeddings, and a loss that falls over 8
+  steps; EMA + MESA and the eval step run.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from hotformerloc_tpu.losses import losses as jl
+from hotformerloc_tpu.models import config as jcfg
+from hotformerloc_tpu.models.hotformerloc import HOTFormerLoc as JModel
+from hotformerloc_tpu.training import optim as jopt
+from hotformerloc_torch.convert import params_from_jax
+from hotformerloc_torch.losses import losses as tl
+from hotformerloc_torch.models import config as tcfg
+from hotformerloc_torch.models.hotformerloc import HOTFormerLoc as TModel
+from hotformerloc_torch.models.layers import DropPath
+from hotformerloc_torch.training import optim as topt
+from hotformerloc_torch.training.step import (StepConfig, make_eval_step,
+                                              make_train_step)
+
+
+def synthetic_batch(rng, B, P, k=2):
+    """k-sample positive groups of jittered copies of a base cloud."""
+    base = rng.uniform(-0.8, 0.8, size=(B // k, P, 3)).astype(np.float32)
+    pts = np.repeat(base, k, axis=0)
+    pts = pts + rng.normal(0, 0.01, size=pts.shape).astype(np.float32)
+    groups = np.repeat(np.arange(B // k), k)
+    return {"points": pts, "pmask": np.ones((B, P), bool),
+            "positives_mask": (groups[:, None] == groups[None])
+            & ~np.eye(B, dtype=bool),
+            "negatives_mask": groups[:, None] != groups[None]}
+
+
+def torch_batch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+# -- losses -----------------------------------------------------------------
+
+
+def _loss_inputs(seed, B=12, D=16):
+    rng = np.random.default_rng(seed)
+    e = rng.standard_normal((B, D)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    groups = rng.integers(0, 4, B)
+    pos = (groups[:, None] == groups[None]) & ~np.eye(B, dtype=bool)
+    neg = groups[:, None] != groups[None]
+    neg[0, :] = False                   # a row without negatives
+    return e, pos, neg
+
+
+LOSSES = {
+    "truncatedsmoothap": dict(positives_per_query=2),
+    "batchhardtripletmarginloss": {},
+    "batchhardcontrastiveloss": {},
+}
+
+
+@pytest.mark.parametrize("name", list(LOSSES))
+def test_loss_value_and_grad_match_jax(name):
+    e, pos, neg = _loss_inputs(len(name))
+    jf = jl.make_loss(name, **LOSSES[name])
+    tf = tl.make_loss(name, **LOSSES[name])
+    (jv, jstats), jg = jax.value_and_grad(jf, has_aux=True)(
+        jnp.asarray(e), jnp.asarray(pos), jnp.asarray(neg))
+    et = torch.from_numpy(e).requires_grad_()
+    tv, tstats = tf(et, torch.from_numpy(pos), torch.from_numpy(neg))
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    # entries near zero: both sides round the affinities before the
+    # 1/tau1 = 100 gain of the sigmoid, so the floor scales with max |g|
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(et.grad.numpy(), jg, rtol=1e-5,
+                               atol=1e-5 * np.abs(jg).max())
+    assert set(tstats) == set(jstats)
+    for k in jstats:
+        np.testing.assert_allclose(float(tstats[k]), float(jstats[k]),
+                                   rtol=1e-5, err_msg=k)
+
+
+def test_kd_loss_value_and_grad_match_jax():
+    rng = np.random.default_rng(9)
+    s, t = (rng.standard_normal((6, 16)).astype(np.float32) for _ in "st")
+    jv, jg = jax.value_and_grad(jl.kd_loss)(jnp.asarray(s), jnp.asarray(t))
+    st = torch.from_numpy(s).requires_grad_()
+    tv = tl.kd_loss(st, torch.from_numpy(t))
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-5)
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(st.grad.numpy(), jg, rtol=1e-5,
+                               atol=1e-5 * np.abs(jg).max())
+
+
+# -- optimiser and schedule ------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(base_lr=5e-4, steps_per_epoch=100, epochs=150, warmup_epochs=5,
+         milestones=[100]),
+    dict(base_lr=1.0, steps_per_epoch=1, epochs=100,
+         scheduler="CosineAnnealingLR", min_lr=0.1, warmup_epochs=3),
+    dict(base_lr=1.0, steps_per_epoch=2, epochs=10, scheduler="ExponentialLR",
+         gamma=0.5)])
+def test_lr_schedule_matches_jax(kw):
+    js, ts = jopt.lr_schedule(**kw), topt.lr_schedule(**kw)
+    for step in (0, 1, 99, 100, 250, 499, 500, 501, 10_499, 10_500, 10_501,
+                 14_999):
+        # atol: 0.5 ** 7000 underflows to 0 in JAX's fp32
+        np.testing.assert_allclose(ts(step), float(js(step)), rtol=1e-6,
+                                   atol=1e-30, err_msg=str(step))
+
+
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_optimizer_steps_match_optax(name):
+    rng = np.random.default_rng(3)
+    p0 = {"a": rng.standard_normal((5, 4)).astype(np.float32),
+          "b": rng.standard_normal(7).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in p0.items()} for _ in range(5)]
+    kw = dict(base_lr=1e-2, steps_per_epoch=1, epochs=10, warmup_epochs=2)
+    tx = jopt.make_optimizer(name, jopt.lr_schedule(**kw), weight_decay=1e-4)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    st = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in p0.items()}
+    opt = topt.make_optimizer(tp.values(), name, topt.lr_schedule(**kw),
+                              weight_decay=1e-4)
+    for i, g in enumerate(grads):
+        up, st = tx.update({k: jnp.asarray(v) for k, v in g.items()}, st, jp)
+        jp = optax.apply_updates(jp, up)
+        for group in opt.param_groups:
+            group["lr"] = opt.schedule(i)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(g[k])
+        opt.step()
+    # atol: optax rounds the bias correction 1 - 0.999**t in fp32 (off
+    # by 1.3e-5 at t = 1), torch in fp64, so the updates (summing to
+    # ~3.5e-2 here) differ by up to ~2.5e-7
+    for k in p0:
+        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_lamb_is_not_ported():
+    with pytest.raises(NotImplementedError, match="lamb"):
+        topt.make_optimizer([torch.nn.Parameter(torch.zeros(2))], "lamb",
+                            topt.lr_schedule(1e-3, 1, 10))
+
+
+# -- model gradients against jax.grad ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def grad_pair():
+    """Loss and parameter gradients of truncated_smoothap over the JAX
+    tiny model (plain XLA paths, deterministic), and the port's model
+    with the same weights."""
+    cj = jcfg.tiny_test_config(drop_path=0.0, use_pallas_attn=False,
+                               use_band_conv=False, num_points=256)
+    b = synthetic_batch(np.random.default_rng(21), 4, 256)
+    b["pmask"][3, 200:] = False
+    jm = JModel(cj)
+    args = [jnp.asarray(b[k]) for k in ("points", "pmask")]
+    v = jm.init(jax.random.PRNGKey(1), *args)
+    loss_fn = jl.make_loss("truncatedsmoothap", positives_per_query=1)
+
+    def loss_of(params):
+        out = jm.apply({"params": params}, *args)
+        return loss_fn(out["global"], jnp.asarray(b["positives_mask"]),
+                       jnp.asarray(b["negatives_mask"]))[0]
+
+    jloss, jgrad = jax.jit(jax.value_and_grad(loss_of))(v["params"])
+    np_tree = jax.tree_util.tree_map(np.asarray, v["params"])
+    tm = TModel(tcfg.tiny_test_config(drop_path=0.0, num_points=256),
+                device="cpu")
+    tm.load_state_dict(params_from_jax(np_tree, tm))
+    # params_from_jax maps any tree shaped like the params, here the
+    # gradient tree, by name onto the port's parameters
+    tgrad_ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrad),
+                                tm)
+    return tm, b, float(jloss), tgrad_ref
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_model_grads_match_jax(grad_pair, use_kernels):
+    tm, b, jloss, gref = grad_pair
+    tm.set_use_kernels(use_kernels)
+    tm.train()
+    tm.zero_grad(set_to_none=True)
+    tb = torch_batch(b)
+    out = tm(tb["points"], tb["pmask"])
+    loss, _ = tl.truncated_smoothap(out["global"], tb["positives_mask"],
+                                    tb["negatives_mask"],
+                                    positives_per_query=1)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), jloss, rtol=1e-5)
+    assert set(gref) == {n for n, _ in tm.named_parameters()}
+    bad = []
+    for name, p in tm.named_parameters():
+        d = float((p.grad - gref[name]).norm())
+        lim = 1e-3 * float(gref[name].norm()) + 1e-8
+        if not d <= lim:
+            bad.append((name, d, lim))
+    assert not bad, bad[:5]
+    tm.eval()
+
+
+# -- the train step -----------------------------------------------------------
+
+
+def _setup(drop_path, accum, seed=0, mesa=0.0, use_ema=False, B=8):
+    cfg = tcfg.tiny_test_config(drop_path=drop_path, num_points=256)
+    model = TModel(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(seed))
+    opt = topt.make_optimizer(model.parameters(), "adam",
+                              topt.lr_schedule(1e-3, 1, 100,
+                                               scheduler="constant"),
+                              weight_decay=1e-4)
+    step = make_train_step(model, opt, tl.make_loss(
+        "truncatedsmoothap", positives_per_query=1),
+        StepConfig(accum_steps=accum, mesa=mesa, use_ema=use_ema,
+                   ema_decay=0.5, check_recompute=accum > 1))
+    batch = torch_batch(synthetic_batch(np.random.default_rng(0), B, 256))
+    return model, step, batch
+
+
+def test_multistage_matches_single_pass():
+    """accum 4 against 1 at drop_path 0 (tests/test_train_step.py:74-95
+    bar): loss rtol 1e-4; params after one step within rtol 5e-3 /
+    atol 1e-5 with < 0.5% mismatched."""
+    m1, s1, batch = _setup(0.0, 1)
+    m4, s4, _ = _setup(0.0, 4)
+    st1, st4 = s1(batch, 7), s4(batch, 7)
+    np.testing.assert_allclose(float(st1["loss"]), float(st4["loss"]),
+                               rtol=1e-4)
+    assert set(st4) - {"recompute_max_abs"} == set(st1)
+    total = mismatched = 0
+    for a, b in zip(m1.parameters(), m4.parameters()):
+        a, b = a.detach().numpy(), b.detach().numpy()
+        mismatched += (~np.isclose(a, b, rtol=5e-3, atol=1e-5)).sum()
+        total += a.size
+        assert np.abs(a - b).max() < 5e-3
+    assert mismatched / total < 0.005, f"{mismatched}/{total}"
+
+
+def test_stats_keys_match_jax_step():
+    e, pos, neg = _loss_inputs(1)
+    _, jstats = jl.truncated_smoothap(jnp.asarray(e), jnp.asarray(pos),
+                                      jnp.asarray(neg))
+    for accum in (1, 4):
+        _, step, batch = _setup(0.0, accum)
+        stats = step(batch, 0)
+        want = set(jstats) | {"octree_overflow", "band_overflow", "grad_norm"}
+        assert set(stats) - {"recompute_max_abs"} == want
+        assert int(stats["band_overflow"]) == 0
+        assert all(torch.isfinite(v.float()).all() for v in stats.values())
+
+
+def test_drop_path_masks_and_rates():
+    cfg = tcfg.tiny_test_config(drop_path=0.5)
+    model = TModel(cfg, device="cpu")
+    sites = model.drop_path_sites()
+    rates = cfg.drop_path_rates()
+    nb0 = cfg.num_blocks[0]
+    levels = cfg.num_pyramid_levels
+    want = [r for r in rates[:nb0] for _ in range(2)]
+    want += [r for r in rates[nb0:] for _ in range(2 * (1 + levels))]
+    assert [s.rate for s in sites] == pytest.approx(want)
+    masks = model.draw_drop_masks(4000, torch.Generator().manual_seed(0))
+    for s, m in zip(sites, masks):
+        keep = 1.0 - s.rate
+        vals = np.unique(m.numpy())
+        assert np.allclose(vals, 1.0) or np.allclose(vals, [0.0, 1.0 / keep])
+        assert float((m > 0).float().mean()) == pytest.approx(keep, abs=0.03)
+    dp = DropPath(0.5)
+    x = torch.ones(3, 2, 5, 4)
+    dp.mask = torch.tensor([0.0, 2.0, 2.0])
+    y = dp(x)
+    assert torch.equal(y[0], torch.zeros(2, 5, 4))
+    assert torch.equal(y[1:], 2 * torch.ones(2, 2, 5, 4))
+    dp.mask = None
+    assert dp(x) is x
+
+
+def test_drop_path_stages_agree_and_loss_falls():
+    """drop_path 0.5: stage 3 recomputes exactly stage 1's embeddings
+    (same masks from (seed, microbatch)), and 8 steps on one batch lower
+    the loss; in eval mode the masks are off."""
+    model, step, batch = _setup(0.5, 4)
+    losses = []
+    for i in range(8):
+        stats = step(batch, i)
+        assert float(stats["recompute_max_abs"]) == 0.0
+        losses.append(float(stats["loss"]))
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0], losses
+    model.train()
+    masks = model.draw_drop_masks(8, torch.Generator().manual_seed(1))
+    a = model(batch["points"], batch["pmask"], drop_masks=masks)["global"]
+    b = model(batch["points"], batch["pmask"], drop_masks=masks)["global"]
+    assert torch.equal(a, b)
+    model.eval()
+    c = model(batch["points"], batch["pmask"], drop_masks=masks)["global"]
+    assert not torch.allclose(a, c)
+
+
+def test_ema_mesa_and_eval_step():
+    model, step, batch = _setup(0.0, 4, mesa=0.1, use_ema=True)
+    e0 = [p.clone() for p in step.state.ema_model.parameters()]
+    stats = step(batch, 0)
+    assert np.isfinite(float(stats["loss"]))
+    e1 = list(step.state.ema_model.parameters())
+    assert any(not torch.equal(a, b) for a, b in zip(e0, e1))
+    assert step.state.step == 1
+    ev = make_eval_step(model, tl.make_loss("truncatedsmoothap",
+                                            positives_per_query=1))(batch)
+    assert np.isfinite(float(ev["loss"])) and not model.training
