@@ -17,7 +17,12 @@ from __future__ import annotations
 
 LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
             "window_attn_bwd": 0, "octree_dwconv_bwd": 0,
-            "octree_conv_bwd": 0}
+            "octree_conv_bwd": 0,
+            # the probe tools' kernels (gather.py, constructs.py)
+            "take_rows": 0, "dwconv_resident": 0,
+            **{f"construct_{n}": 0 for n in (
+                "headloop", "reshape", "onehot4d", "dtab", "pad", "selloop",
+                "softmax", "slicestore", "dk", "packbias")}}
 
 
 def reset_launches() -> None:

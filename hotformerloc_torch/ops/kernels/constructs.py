@@ -1,0 +1,265 @@
+"""The ten building blocks of the fused window attention (csrc/constructs.cu).
+
+hotformerloc_tpu/tools/mosaic_probe.py:constructs compiled each of these
+as its own Pallas kernel through ``_run`` (T3), to learn which constructs
+the TPU's compiler accepts. Each wrapper here launches one CUDA kernel
+that computes the construct's function with its roundings, on CUDA
+tensors, and runs the ``*_reference`` plain version beside it on CPU
+tensors. ``CONSTRUCTS`` maps each name to (wrapper, plain version, line
+of the TPU kernel body in mosaic_probe.py).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from hotformerloc_torch.ops import kernels
+from hotformerloc_torch.ops.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+def _launch(name, argtypes, t0, *args):
+    """Launch construct ``name`` on t0's device and count it."""
+    fn = getattr(build.library("constructs"), f"construct_{name}")
+    fn.argtypes = argtypes + [_P]
+    fn.restype = ctypes.c_int
+    build.check(fn(*args, build.stream_ptr(t0.device)), f"construct_{name}")
+    kernels.LAUNCHES[f"construct_{name}"] += 1
+
+
+def _on_card(name, *ts, dtypes):
+    """True for CUDA inputs of the expected dtypes, contiguous, on one
+    device; False for CPU inputs; raises otherwise."""
+    dev = ts[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"construct_{name}: unsupported device {dev}")
+    for t, dt in zip(ts, dtypes):
+        if t.device != dev or not t.is_contiguous() or t.dtype != dt:
+            raise ValueError(f"construct_{name}: want contiguous {dt} on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    return True
+
+
+_BF, _F32, _I32 = torch.bfloat16, torch.float32, torch.int32
+
+
+# -- k_headloop: two 16-lane head slices, fp32 per-head products ------------
+
+def headloop_reference(q, k, hd=16):
+    acc = torch.zeros(q.shape[0], q.shape[1], k.shape[1],
+                      dtype=torch.float32, device=q.device)
+    for h in range(2):
+        sl = slice(h * hd, (h + 1) * hd)
+        acc += torch.einsum("wtd,wsd->wts", q[..., sl].float(),
+                            k[..., sl].float())
+    return acc
+
+
+def headloop(q, k, hd=16):
+    """out[w,t,s] = sum_{h<2} q_h[w,t] . k_h[w,s] over lanes h*hd..; q, k
+    (WT, T, C) bf16 -> (WT, T, T) fp32."""
+    if not _on_card("headloop", q, k, dtypes=(_BF, _BF)):
+        return headloop_reference(q, k, hd)
+    WT, T, C = q.shape
+    if k.shape != q.shape or C < 2 * hd:
+        raise ValueError("construct_headloop: want q, k (WT, T, C >= 2 hd)")
+    out = torch.empty((WT, T, T), dtype=_F32, device=q.device)
+    _launch("headloop", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
+            out.data_ptr(), WT, T, C, hd)
+    return out
+
+
+# -- k_reshape: int32 (WT, K, K) -> float32 (WT*K*K, 1) ---------------------
+
+def reshape_reference(idx):
+    return idx.reshape(-1, 1).float()
+
+
+def reshape(idx):
+    if not _on_card("reshape", idx, dtypes=(_I32,)):
+        return reshape_reference(idx)
+    out = torch.empty((idx.numel(), 1), dtype=_F32, device=idx.device)
+    _launch("reshape", [_P, _P, _L], idx, idx.data_ptr(), out.data_ptr(),
+            idx.numel())
+    return out
+
+
+# -- k_onehot4d: one-hot (.., R) bf16 times tab (R, H) bf16 -----------------
+
+def onehot4d_reference(idx, tab):
+    R = tab.shape[0]
+    t = tab.to(_BF).float()
+    ok = (idx >= 0) & (idx < R)
+    g = t[idx.clamp(0, R - 1).long()]
+    return torch.where(ok[..., None], g, torch.zeros_like(g))
+
+
+def onehot4d(idx, tab):
+    """out[..., h] = float(bf16(tab[idx[...], h])), 0 where idx is off
+    the table; idx int32, tab (R, H) fp32."""
+    if not _on_card("onehot4d", idx, tab, dtypes=(_I32, _F32)):
+        return onehot4d_reference(idx, tab)
+    R, H = tab.shape
+    out = torch.empty((*idx.shape, H), dtype=_F32, device=idx.device)
+    _launch("onehot4d", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
+            tab.data_ptr(), out.data_ptr(), idx.numel(), H, R)
+    return out
+
+
+# -- k_dtab: the adjoint, one-hot^T g contracted over the three majors ------
+
+def dtab_reference(idx, g, R):
+    H = g.shape[-1]
+    ok = ((idx >= 0) & (idx < R)).reshape(-1)
+    out = torch.zeros((R, H), dtype=_F32, device=g.device)
+    out.index_add_(0, idx.reshape(-1)[ok].long(),
+                   g.to(_BF).float().reshape(-1, H)[ok])
+    return out
+
+
+def dtab(idx, g, R):
+    """out[r, h] = sum over idx[...] == r of float(bf16(g[..., h])), fp32;
+    idx int32 (...), g fp32 (..., H)."""
+    if not _on_card("dtab", idx, g, dtypes=(_I32, _F32)):
+        return dtab_reference(idx, g, R)
+    H = g.shape[-1]
+    if g.shape[:-1] != idx.shape or R * H * 4 > 48 * 1024:
+        raise ValueError("construct_dtab: want g (*idx.shape, H) and "
+                         "R * H * 4 <= 48 KB")
+    out = torch.zeros((R, H), dtype=_F32, device=g.device)
+    _launch("dtab", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
+            g.data_ptr(), out.data_ptr(), idx.numel(), H, R)
+    return out
+
+
+# -- k_pad: (WT, K, K) -> (WT, K+G, K+G) with G leading zero rows/cols ------
+
+def pad_reference(b, G=1):
+    return F.pad(b, (G, 0, G, 0))
+
+
+def pad(b, G=1):
+    if not _on_card("pad", b, dtypes=(_F32,)):
+        return pad_reference(b, G)
+    WT, K, K2 = b.shape
+    if K2 != K:
+        raise ValueError("construct_pad: want (WT, K, K)")
+    out = torch.empty((WT, K + G, K + G), dtype=_F32, device=b.device)
+    _launch("pad", [_P, _P, _I, _I, _I], b, b.data_ptr(), out.data_ptr(),
+            WT, K, G)
+    return out
+
+
+# -- k_selloop: sum_{r < nsel} [idx == r] * tab[r, 0] -----------------------
+
+def selloop_reference(idx, tab, nsel=4):
+    acc = torch.zeros(idx.shape, dtype=_F32, device=idx.device)
+    for r in range(nsel):
+        acc += torch.where(idx == r, tab[r, 0], 0.0)
+    return acc
+
+
+def selloop(idx, tab, nsel=4):
+    if not _on_card("selloop", idx, tab, dtypes=(_I32, _F32)):
+        return selloop_reference(idx, tab, nsel)
+    if tab.shape[0] < nsel:
+        raise ValueError(f"construct_selloop: tab needs {nsel} rows")
+    out = torch.empty(idx.shape, dtype=_F32, device=idx.device)
+    _launch("selloop", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
+            tab.data_ptr(), out.data_ptr(), idx.numel(), nsel, tab.shape[1])
+    return out
+
+
+# -- k_softmax: fp32 softmax over the last axis -----------------------------
+
+def softmax_reference(x):
+    return torch.softmax(x, dim=-1)
+
+
+def softmax(x):
+    if not _on_card("softmax", x, dtypes=(_F32,)):
+        return softmax_reference(x)
+    L = x.shape[-1]
+    if L > 1024:
+        raise ValueError("construct_softmax: last axis above 1024")
+    out = torch.empty_like(x)
+    _launch("softmax", [_P, _P, _L, _I], x, x.data_ptr(), out.data_ptr(),
+            x.numel() // L, L)
+    return out
+
+
+# -- k_slicestore: out[..., :width] = 2 q[..., :width], bf16 ----------------
+
+def slicestore_reference(q, width=32):
+    return q[..., :width] * 2.0
+
+
+def slicestore(q, width=32):
+    if not _on_card("slicestore", q, dtypes=(_BF,)):
+        return slicestore_reference(q, width)
+    C = q.shape[-1]
+    if width > C:
+        raise ValueError("construct_slicestore: width above C")
+    out = torch.empty((*q.shape[:-1], width), dtype=_BF, device=q.device)
+    _launch("slicestore", [_P, _P, _L, _I, _I], q, q.data_ptr(),
+            out.data_ptr(), q.numel() // C, C, width)
+    return out
+
+
+# -- k_dk: sum_t q[w,t,a] k[w,t,b] over the first hd lanes, fp32 ------------
+
+def dk_reference(q, k, hd=16):
+    return torch.einsum("wta,wtb->wab", q[..., :hd].float(),
+                        k[..., :hd].float())
+
+
+def dk(q, k, hd=16):
+    if not _on_card("dk", q, k, dtypes=(_BF, _BF)):
+        return dk_reference(q, k, hd)
+    WT, T, C = q.shape
+    if k.shape != q.shape or hd > C:
+        raise ValueError("construct_dk: want q, k (WT, T, C >= hd)")
+    out = torch.empty((WT, hd, hd), dtype=_F32, device=q.device)
+    _launch("dk", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
+            out.data_ptr(), WT, T, C, hd)
+    return out
+
+
+# -- k_packbias: packed windows, q2 q2^T over the first hd lanes, fp32 ------
+
+def packbias_reference(q, k, hd=16):
+    return torch.einsum("wtd,wsd->wts", q[..., :hd].float(),
+                        k[..., :hd].float())
+
+
+def packbias(q, k, hd=16):
+    if not _on_card("packbias", q, k, dtypes=(_BF, _BF)):
+        return packbias_reference(q, k, hd)
+    WT, T, C = q.shape
+    if k.shape != q.shape or hd > C:
+        raise ValueError("construct_packbias: want q, k (WT, T, C >= hd)")
+    out = torch.empty((WT, T, T), dtype=_F32, device=q.device)
+    _launch("packbias", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
+            out.data_ptr(), WT, T, C, hd)
+    return out
+
+
+CONSTRUCTS = {
+    "headloop": (headloop, headloop_reference, 66),
+    "reshape": (reshape, reshape_reference, 79),
+    "onehot4d": (onehot4d, onehot4d_reference, 85),
+    "dtab": (dtab, dtab_reference, 95),
+    "pad": (pad, pad_reference, 107),
+    "selloop": (selloop, selloop_reference, 113),
+    "softmax": (softmax, softmax_reference, 122),
+    "slicestore": (slicestore, slicestore_reference, 128),
+    "dk": (dk, dk_reference, 136),
+    "packbias": (packbias, packbias_reference, 146),
+}
