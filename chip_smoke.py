@@ -44,26 +44,24 @@ script exits non-zero without the final line:
    K2 136, K3 192, K4 96, K5 24, K6 12); loss, stats and gradients must
    be finite; then 3 warm-up and 10 timed steps give step ms, submaps/s,
    octree + plan ms per step and peak memory.
-7. probes: the kernels of the on-chip probe tools. take_rows (T1 at
-   gather_bench's (8, 4224, 256) bf16 on real tables, T4 at
-   mosaic_probe's six row-gather cases), dwconv_resident (T2 at
-   (8, 4224, 256), bf16 and fp32, with K3's time at the same shape) and
-   the ten construct kernels (T3, mosaic_probe's shapes and dtypes), each
-   against its plain version on the card (take_rows and the copy-like
-   constructs exactly, dwconv_resident within one bf16 ulp / 1e-5 at
-   fp32, the products, softmax and dtab to a relative 1e-5). The kernel,
-   its plain version and, where one PyTorch call computes the same
-   function, that call are each timed twice: device time under
-   torch.profiler (*ms) and CUDA events around one call (*call_ms, the
+7. probes: the probe tools end to end on the card, the slice's main
+   path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
+   256) on real tables, with K3 on the same inputs) and mosaic_probe
+   constructs (T3's ten kernels), gather (T4's six row gathers through
+   take_rows), attn and band, each with PROBE_REPS repetitions. The
+   tools hold every kernel against its plain version (take_rows and the
+   copy-like constructs bit for bit, dwconv_resident within one bf16 ulp
+   / 1e-5 at fp32, the products, softmax and dtab to a relative 1e-5),
+   and time it, its plain version and, where one PyTorch call computes
+   the same function, that call: device time under torch.profiler (*ms
+   in the kernels line) and CUDA events around one call (*call_ms, the
    host's launch included, which is most of a call of a few
-   microseconds). Then the tools run end to end
-   on the card with few repetitions (gather_bench, and mosaic_probe
-   constructs, gather, attn, band); the launch counters, zeroed just
-   before and read just after, must show every probe kernel launched.
+   microseconds). The launch counters, zeroed before each tool and read
+   after it, must equal the launches its checked and timed calls make.
 8. the kernels line {"kernels": [...]} (the six model kernels, forward
    rows per forward of batch 32 and backward rows per train step of
-   batch 32; then the twelve probe kernels, per call at the headline
-   shape, launches per run of the tools), then {"ok": true, "device":
+   batch 32; then the twelve probe kernels, per call at the tools'
+   shapes, launches per run of the tools), then {"ok": true, "device":
    ...}.
 Every phase prints its seconds.
 """
@@ -95,8 +93,6 @@ REPS = 20
 BATCH = 32
 MICRO = 8                    # microbatch of the train step
 ACCUM = BATCH // MICRO
-HBM_BYTES_S = 3.35e12                                # H100 SXM
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}         # CUDA cores / tensor
 # kernel -> the pl.pallas_call line(s) it replaces (kernel body line)
 _PA = "hotformerloc_tpu/ops/pallas/"
 _TL = "hotformerloc_tpu/tools/"
@@ -133,21 +129,10 @@ def smi_line():
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
-def time_ms(torch, fn, reps=REPS):
+def time_ms(fn, reps=REPS):
     """Median CUDA-event time of one call, after two warm-up calls."""
-    fn()
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    from hotformerloc_torch.utils.profiling import time_fn
+    return time_fn(fn, iters=reps, warmup=2)["median_ms"]
 
 
 def clouds(seed=0):
@@ -243,9 +228,9 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
             row[f"err_{dt}"] = check(out, ref, ("act",) * 3 + ("weight",),
                                      "window_attn_bwd", dt)
             row[f"ms_{dt}"] = time_ms(
-                torch, lambda: kattn.window_attention_bwd(*args))
+                lambda: kattn.window_attention_bwd(*args))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: kattn.window_attention_bwd_reference(*args))
+                lambda: kattn.window_attention_bwd_reference(*args))
             # yardstick: SDPA forward + backward, bias materialised and
             # differentiated (it stops at dbias: no fold into the table)
             qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2).detach()
@@ -260,8 +245,8 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
             def lib():
                 o = F.scaled_dot_product_attention(qh, kh, vh,
                                                    attn_mask=bias)
-                torch.autograd.grad(o, (qh, kh, vh, bias), gh)
-            row[f"library_ms_{dt}"] = time_ms(torch, lib)
+                return torch.autograd.grad(o, (qh, kh, vh, bias), gh)
+            row[f"library_ms_{dt}"] = time_ms(lib)
             esz = q.element_size()
             nbytes = (7 * BW * T * C * esz + xyz.numel() * 4
                       + mask.numel() * 4 + 2 * table.numel() * 4)
@@ -286,9 +271,9 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
             row[f"err_{dt}"] = check(out, ref, ("act", "weight"),
                                      "octree_dwconv_bwd", dt)
             row[f"ms_{dt}"] = time_ms(
-                torch, lambda: kconv.octree_dwconv_bwd(x, neigh, w, dy))
+                lambda: kconv.octree_dwconv_bwd(x, neigh, w, dy))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: plain.octree_dwconv_bwd(x, neigh, w, dy))
+                lambda: plain.octree_dwconv_bwd(x, neigh, w, dy))
             row[f"library_ms_{dt}"] = None
             esz = x.element_size()
             nbytes = (3 * B * N * C * esz + neigh.numel() * 4
@@ -314,10 +299,9 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
             ref = plain.octree_conv_bwd(*args)
             row[f"err_{dt}"] = check(out, ref, ("act", "weight", "weight"),
                                      "octree_conv_bwd", dt)
-            row[f"ms_{dt}"] = time_ms(
-                torch, lambda: kconv.octree_conv_bwd(*args))
+            row[f"ms_{dt}"] = time_ms(lambda: kconv.octree_conv_bwd(*args))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: plain.octree_conv_bwd(*args))
+                lambda: plain.octree_conv_bwd(*args))
             row[f"library_ms_{dt}"] = None
             esz = x.element_size()
             nbytes = (B * N * (C * (2 if need_dx else 1) + O) * esz
@@ -464,227 +448,92 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
     return launches, out
 
 
-def construct_cost(name, args, out):
-    """(bytes, bf16 operations) of one call of a construct: each input
-    byte it reads once, its output written once; operations for the
-    three products (bf16 inputs, fp32 sums) only."""
-    def nb(t):
-        return t.numel() * t.element_size()
-    if name in ("headloop", "dk", "packbias"):
-        q, k, hd = args
-        width = 2 * hd if name == "headloop" else hd
-        WT, T = q.shape[:2]
-        reads = (1 if name == "packbias" else 2) * WT * T * width * 2
-        flops = 2 * WT * T * (T * width if name != "dk" else hd * hd)
-        return reads + nb(out), flops
-    if name == "slicestore":
-        return 2 * nb(out), 0
-    if name == "selloop":
-        return nb(args[0]) + 4 * args[2] + nb(out), 0
-    if name == "dtab":
-        return nb(args[0]) + nb(args[1]) + nb(out), 0
-    return sum(nb(a) for a in args if hasattr(a, "numel")) + nb(out), 0
-
-
-def construct_library(torch, F, name, args):
-    """One PyTorch call that computes the construct's function on inputs
-    prepared outside the timed call, or None where there is none."""
-    if name in ("headloop", "dk", "packbias"):
-        q, k, hd = args
-        width = 2 * hd if name == "headloop" else hd
-        qa = q[..., :width].float().contiguous()
-        ka = k[..., :width].float().contiguous()
-        if name == "dk":
-            qt = qa.transpose(1, 2)
-            return lambda: torch.bmm(qt, ka)
-        kt = ka.transpose(1, 2)
-        return lambda: torch.bmm(qa, kt)
-    if name == "reshape":
-        return lambda: args[0].view(-1, 1).float()
-    if name == "onehot4d":
-        tab = args[1].to(torch.bfloat16).float()
-        return lambda: F.embedding(args[0], tab)
-    if name == "dtab":
-        idx, g, R = args
-        il = idx.reshape(-1).long()
-        gr = g.to(torch.bfloat16).float().reshape(-1, g.shape[-1])
-        zero = torch.zeros((R, g.shape[-1]), device=g.device)
-        return lambda: zero.index_add(0, il, gr)
-    if name == "pad":
-        return lambda: F.pad(args[0], (args[1], 0, args[1], 0))
-    if name == "softmax":
-        return lambda: torch.softmax(args[0], dim=-1)
-    if name == "slicestore":
-        q, width = args
-        return lambda: torch.mul(q[..., :width], 2)
-    return None
-
-
-def probes_phase(torch, F, dev, bound):
-    """The probe tools' kernels against their plain versions and timed,
-    then the tools end to end. Returns (kernels-line entries, phase
-    numbers)."""
-    from hotformerloc_torch.ops import conv as plain
+def probes_phase(torch):
+    """The probe tools end to end on the card (this slice's main path):
+    gather_bench, then mosaic_probe constructs, gather, attn and band,
+    each holding its kernels against their plain versions. The launch
+    counters are zeroed before each tool's run and must show exactly the
+    launches its checked and timed calls make. Returns (kernels-line
+    entries built from the tools' own lines, phase numbers)."""
     from hotformerloc_torch.ops import kernels
-    from hotformerloc_torch.ops.kernels import constructs as kcon
-    from hotformerloc_torch.ops.kernels import gather as kgather
-    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    from hotformerloc_torch.ops.kernels.constructs import CONSTRUCTS
     from hotformerloc_torch.tools import gather_bench, mosaic_probe
-    from hotformerloc_torch.utils.profiling import device_ms
 
-    def timed(row, key, fn):
-        """row[key + "ms"]: the call's kernel time under the profiler;
-        row[key + "call_ms"]: CUDA events around one call, the host's
-        launch included (most of a call of a few microseconds)."""
-        row[key + "ms"] = device_ms(fn, iters=REPS)
-        row[key + "call_ms"] = time_ms(torch, fn)
-
-    # T1 and T2 at gather_bench's shape, on its real tables and inputs
-    neigh = gather_bench.real_tables(8, device=dev)
-    B, N, _ = neigh.shape
-    C = gather_bench.C_CHANNELS
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.normal(0, 1, (B, N, C)).astype(np.float32)).to(
-        dev, torch.bfloat16)
-    w = torch.from_numpy(rng.normal(0, 0.2, (27, C)).astype(np.float32)).to(
-        dev, torch.bfloat16)
-
-    # take_rows: T1 (tap 0 of the table, read in place: one 32-byte
-    # sector per index), then T4's cases (contiguous int32 indices)
-    cases = [("T1 pl_take", x, neigh[..., 0], 32)]
-    cases += [(f"T4 {n}", xx.to(dev), ii.to(dev), 4)
-              for n, xx, ii in mosaic_probe.gather_inputs()]
-    take = []
-    for label, xx, ii, idx_bytes in cases:
-        out = kgather.take_rows(xx, ii)
-        ref = kgather.take_rows_reference(xx, ii)
-        Nx, Cx = xx.shape[-2:]
-        batch = torch.arange(xx.shape[0], device=dev)[:, None] * Nx \
-            if xx.dim() == 3 else 0
-        flat = (ii.long().clamp(0, Nx - 1) + batch).reshape(-1)
-        x2 = xx.reshape(-1, Cx)
-        lib = torch.index_select(x2, 0, flat).reshape(out.shape)
-        err = float((out.float() - ref.float()).abs().max())
-        if err != 0.0 or not torch.equal(lib, out):
-            raise AssertionError(f"take_rows {label}: kernel differs from "
-                                 f"its plain version by {err}")
-        esz = xx.element_size()
-        nbytes = (int(torch.unique(flat).numel()) * Cx * esz
-                  + out.numel() * esz + ii.numel() * idx_bytes)
-        row = {"case": label, "x": list(xx.shape), "idx": list(ii.shape),
-               "dtype": str(xx.dtype).split(".")[1], "err": err}
-        timed(row, "", lambda: kgather.take_rows(xx, ii))
-        timed(row, "plain_", lambda: kgather.take_rows_reference(xx, ii))
-        timed(row, "library_", lambda: torch.index_select(x2, 0, flat))
-        row["bound_ms"], row["bound_by"] = bound(nbytes, 0, "bf16")
-        take.append(row)
-        emit({"phase": "probe_kernel", "kernel": "take_rows", **row})
-
-    # dwconv_resident at T2's shape, bf16 (the tool's) and fp32, with K3
-    resident = {"case": "T2 pl_dw", "shape": [B, N, C],
-                "valid_taps": int((neigh >= 0).sum())}
-    for dt, tdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        xd, wd = x.to(tdt), w.to(tdt)
-        out = kgather.dwconv_resident(xd, neigh, wd)
-        resident[f"err_{dt}"] = gather_bench.check_close(
-            f"dwconv_resident {dt}", out, plain.octree_dwconv(xd, neigh, wd))
-        timed(resident, f"{dt}_",
-              lambda: kgather.dwconv_resident(xd, neigh, wd))
-        timed(resident, f"{dt}_plain_",
-              lambda: plain.octree_dwconv(xd, neigh, wd))
-        timed(resident, f"{dt}_k3_",
-              lambda: kconv.octree_dwconv(xd, neigh, wd))
-        esz = xd.element_size()
-        nbytes = 2 * B * N * C * esz + neigh.numel() * 4 + 27 * C * esz
-        resident[f"bound_ms_{dt}"], resident[f"bound_by_{dt}"] = bound(
-            nbytes, 2 * resident["valid_taps"] * C, dt)
-    emit({"phase": "probe_kernel", "kernel": "dwconv_resident", **resident})
-
-    # the ten T3 constructs at mosaic_probe's shapes and dtypes
-    cons = {}
-    for name, args in mosaic_probe.construct_inputs().items():
-        fn, ref_fn, line_no = kcon.CONSTRUCTS[name]
-        a = mosaic_probe.to_device(args, dev)
-        out = fn(*a)
-        err = mosaic_probe.check_construct(name, out, ref_fn(*a))
-        lib = construct_library(torch, F, name, a)
-        if lib is not None and not torch.allclose(
-                lib().float().reshape(out.shape), out.float(), rtol=1e-5,
-                atol=1e-5 * float(out.float().abs().max())):
-            raise AssertionError(f"construct_{name}: the library call "
-                                 "computes another function")
-        nbytes, flops = construct_cost(name, a, out)
-        row = {"construct": name, "line": line_no, "err": err,
-               "out": list(out.shape), "dtype": str(out.dtype).split(".")[1]}
-        timed(row, "", lambda: fn(*a))
-        timed(row, "plain_", lambda: ref_fn(*a))
-        if lib is None:
-            row["library_ms"] = row["library_call_ms"] = None
-        else:
-            timed(row, "library_", lib)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, "bf16")
-        cons[name] = row
-        emit({"phase": "probe_kernel", "kernel": f"construct_{name}", **row})
-    torch.cuda.synchronize()
-    del x, w, neigh
-
-    # the tools end to end on the card: this slice's main path
+    # a kernel a tool checks and times: one checked call, then time_fn's
+    # warm-up and timed calls, then device_ms's warm-up and profiled ones
+    per = 1 + (2 + PROBE_REPS) + (1 + PROBE_REPS)
+    cons = [f"construct_{n}" for n in mosaic_probe.CONSTRUCT_PROBES]
+    n_attn, n_take = len(mosaic_probe.ATTN_FUNCTIONS), len(
+        mosaic_probe.gather_inputs())
+    # attn: per function K1 is checked twice (forward; forward +
+    # backward) and timed twice, K2 once each; band likewise K3 and K4.
+    want = {"gather_bench": {"take_rows": per, "dwconv_resident": 3 * per,
+                             "octree_dwconv": 2 * per},
+            "constructs": {k: per for k in cons},
+            "gather": {"take_rows": n_take * per},
+            "attn": {"window_attn": n_attn * 2 * per,
+                     "window_attn_bwd": n_attn * per},
+            "band": {"octree_dwconv": 2 * per, "octree_dwconv_bwd": per}}
     reps = ["--reps", str(PROBE_REPS)]
-    t0 = time.time()
-    kernels.reset_launches()
-    gather_bench.main(["--batch", "8", *reps])
+    runs = {"gather_bench": lambda: gather_bench.run(["--batch", "8", *reps])}
     for cmd in ("constructs", "gather", "attn", "band"):
-        mosaic_probe.main([cmd, *reps])
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    probe_names = ["take_rows", "dwconv_resident"] + [
-        f"construct_{n}" for n in cons]
-    missing = [k for k in probe_names if launches[k] < 1]
-    if missing:
-        raise AssertionError(f"the tools' run launched no {missing}")
+        runs[cmd] = lambda cmd=cmd: mosaic_probe.run([cmd, *reps])
+    out, launches = {}, {}
+    t0 = time.time()
+    for tool, fn in runs.items():
+        kernels.reset_launches()
+        out[tool] = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if got != want[tool]:
+            raise AssertionError(f"{tool} launched {got}, want {want[tool]}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
     tools = {"launches_per_tool_run": launches,
              "tools_seconds": round(time.time() - t0, 1)}
 
     units = ("device ms per call (torch.profiler) at the shape in "
              "'shape'; *call_ms: CUDA events around one call, host "
              "launch included")
-    line = [{
-        "name": "take_rows", "route": "cuda", "source": SOURCES["take_rows"],
-        "replaces": REPLACES["take_rows"],
-        "launches": launches["take_rows"],
-        "max_abs_err": max(r["err"] for r in take),
-        **{k: take[0][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "call_ms", "plain_call_ms", "library_call_ms")},
-        "shape": "T1: x (8, 4224, 256) bf16, idx = neigh[..., 0]",
-        "t4_ms": {r["case"][3:]: r["ms"] for r in take[1:]},
-        "units": units + " (library: torch.index_select)"}, {
-        "name": "dwconv_resident", "route": "cuda",
-        "source": SOURCES["dwconv_resident"],
-        "replaces": REPLACES["dwconv_resident"],
-        "launches": launches["dwconv_resident"],
-        "max_abs_err": resident["err_fp32"],
-        "max_abs_err_bf16": resident["err_bf16"],
-        "ms": resident["bf16_ms"], "plain_ms": resident["bf16_plain_ms"],
-        "bound_ms": resident["bound_ms_bf16"],
-        "bound_by": resident["bound_by_bf16"], "library_ms": None,
-        "call_ms": resident["bf16_call_ms"],
-        "k3_ms": resident["bf16_k3_ms"], "ms_fp32": resident["fp32_ms"],
-        "k3_ms_fp32": resident["fp32_k3_ms"],
-        "bound_ms_fp32": resident["bound_ms_fp32"],
-        "shape": "T2: x (8, 4224, 256) bf16, neigh (8, 4224, 27)",
-        "units": units + " (k3_ms: K3 on the same inputs)"}]
-    for name, r in cons.items():
-        line.append({
-            "name": f"construct_{name}", "route": "cuda",
-            "source": CONSTRUCT_SOURCE,
-            "replaces": f"{_TL}mosaic_probe.py:41 (_run of k_{name} "
-                        f":{r['line']})",
-            "launches": launches[f"construct_{name}"],
-            "max_abs_err": r["err"], **{k: r[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "call_ms", "plain_call_ms", "library_call_ms")},
-            "shape": f"T3: out {r['out']} {r['dtype']}", "units": units})
+
+    def entry(name, ln, source, replaces):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": ln["maxdiff"], "ms": ln["device_ms"],
+                "plain_ms": ln["plain_device_ms"],
+                "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
+                "library_ms": ln.get("library_device_ms"),
+                "call_ms": ln["ms"], "plain_call_ms": ln["plain_ms"],
+                "library_call_ms": ln.get("library_ms")}
+
+    res = out["gather_bench"]["results"]
+    take = entry("take_rows", res["pl_take"], SOURCES["take_rows"],
+                 REPLACES["take_rows"])
+    take.update(
+        max_abs_err=max([0.0] + [ln["maxdiff"] for ln in out["gather"]]),
+        shape="T1: x (8, 4224, 256) bf16, idx = neigh[..., 0]",
+        t4_ms={ln["probe"]: ln["device_ms"] for ln in out["gather"]},
+        units=units + " (library: torch.index_select)")
+    dw = entry("dwconv_resident", res["pl_dw"], SOURCES["dwconv_resident"],
+               REPLACES["dwconv_resident"])
+    dw.update(
+        max_abs_err_fp32=res["pl_dw_fp32"]["maxdiff"],
+        k3_ms=res["dw_current"]["device_ms"],
+        nvec1_ms=res["pl_dw_nvec1"]["device_ms"],
+        ms_fp32=res["pl_dw_fp32"]["device_ms"],
+        k3_ms_fp32=res["dw_current_fp32"]["device_ms"],
+        bound_ms_fp32=res["pl_dw_fp32"]["bound_ms"],
+        shape="T2: x (8, 4224, 256) bf16, neigh (8, 4224, 27)",
+        units=units + " (k3_ms: K3 on the same inputs; nvec1_ms: a slice "
+        "of 8 bf16 channels, three blocks per SM)")
+    line = [take, dw]
+    for ln in out["constructs"]:
+        name = ln["construct"]
+        e = entry(f"construct_{name}", ln, CONSTRUCT_SOURCE,
+                  f"{_TL}mosaic_probe.py:41 (_run of k_{name} "
+                  f":{CONSTRUCTS[name][2]})")
+        e.update(shape=f"T3: out {ln['out']} {ln['dtype']}", units=units)
+        line.append(e)
     return line, tools
 
 
@@ -715,6 +564,7 @@ def main():
     from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.plan import build_plan
     from hotformerloc_torch.ops.rpe import rpe_bias_reference
+    from hotformerloc_torch.utils.profiling import bound_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -756,10 +606,7 @@ def main():
                                         cases["octree_dwconv"],
                                         cases["octree_conv"])
 
-    def bound(nbytes, flops, dt):
-        tb, tf = nbytes / HBM_BYTES_S, flops / PEAK_FLOPS[dt]
-        return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
-
+    bound = bound_ms
     def compare(out, ref, kernel, dt):
         err = float((out.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
@@ -797,10 +644,9 @@ def main():
             out = kattn.window_attention(*args)
             ref = kattn.window_attention_reference(*args)
             row[f"err_{dt}"] = compare(out, ref, "window_attn", dt)
-            row[f"ms_{dt}"] = time_ms(torch, lambda: kattn.window_attention(
-                *args))
+            row[f"ms_{dt}"] = time_ms(lambda: kattn.window_attention(*args))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: kattn.window_attention_reference(*args))
+                lambda: kattn.window_attention_reference(*args))
             # yardstick: SDPA with the bias and key mask materialised
             hd = C // H
             qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2)
@@ -812,8 +658,8 @@ def main():
             bias = bias + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
             bias = bias.to(tdt)
             row[f"library_ms_{dt}"] = time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=bias))
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=bias))
             esz = q.element_size()
             nbytes = (4 * BW * T * C * esz + xyz.numel() * 4
                       + mask.numel() * 4 + table.numel() * 4)
@@ -836,10 +682,10 @@ def main():
             out = kconv.octree_dwconv(x, neigh, w)
             ref = plain.octree_dwconv(x, neigh, w)
             row[f"err_{dt}"] = compare(out, ref, "octree_dwconv", dt)
-            row[f"ms_{dt}"] = time_ms(torch, lambda: kconv.octree_dwconv(
+            row[f"ms_{dt}"] = time_ms(lambda: kconv.octree_dwconv(
                 x, neigh, w))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: plain.octree_dwconv(x, neigh, w))
+                lambda: plain.octree_dwconv(x, neigh, w))
             row[f"library_ms_{dt}"] = None
             nbytes = (2 * B * N * C * x.element_size() + neigh.numel() * 4
                       + w.numel() * w.element_size())
@@ -861,10 +707,10 @@ def main():
             out = kconv.octree_conv(x, neigh, w, b)
             ref = plain.octree_conv(x, neigh, w, b)
             row[f"err_{dt}"] = compare(out, ref, "octree_conv", dt)
-            row[f"ms_{dt}"] = time_ms(torch, lambda: kconv.octree_conv(
+            row[f"ms_{dt}"] = time_ms(lambda: kconv.octree_conv(
                 x, neigh, w, b))
             row[f"plain_ms_{dt}"] = time_ms(
-                torch, lambda: plain.octree_conv(x, neigh, w, b))
+                lambda: plain.octree_conv(x, neigh, w, b))
             row[f"library_ms_{dt}"] = None
             esz = x.element_size()
             nbytes = (B * N * (C + O) * esz + neigh.numel() * 4
@@ -992,9 +838,9 @@ def main():
     emit({"phase": "train", **train,
           "seconds": round(time.time() - t_phase, 1)})
 
-    # ---- 7. the probe tools' kernels, then the tools ---------------------
+    # ---- 7. the probe tools ---------------------------------------------
     t_phase = time.time()
-    probe_line, tools = probes_phase(torch, F, dev, bound)
+    probe_line, tools = probes_phase(torch)
     emit({"phase": "probes", **tools,
           "seconds": round(time.time() - t_phase, 1)})
 

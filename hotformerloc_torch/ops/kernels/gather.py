@@ -89,26 +89,28 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def resident_slice(N: int, C: int, elem_size: int,
-                   smem: int = _SMEM_OPTIN) -> int:
+                   smem: int = _SMEM_OPTIN, nvec=None) -> int:
     """16-byte vectors of channels per block slice of ``dwconv_resident``:
-    the widest of 2 and 1 that divides C and whose N rows plus the
-    slice's fp32 weights fit ``smem`` bytes of shared memory. Raises
-    when none does."""
+    ``nvec`` if given, else the widest of 2 and 1, that divides C and
+    whose N rows plus the slice's fp32 weights fit ``smem`` bytes of
+    shared memory. Raises when none does."""
     per_vec = 16 // elem_size
-    for nvec in (2, 1):
-        need = N * nvec * 16 + 4 * 27 * nvec * per_vec
-        if C % (nvec * per_vec) == 0 and need <= smem:
-            return nvec
+    for n in ((nvec,) if nvec else (2, 1)):
+        need = N * n * 16 + 4 * 27 * n * per_vec
+        if C % (n * per_vec) == 0 and need <= smem:
+            return n
     raise ValueError(f"dwconv_resident: no channel slice of N={N} rows "
                      f"fits {smem} bytes of shared memory with C={C}")
 
 
 def dwconv_resident(x: torch.Tensor, neigh: torch.Tensor,
-                    w: torch.Tensor) -> torch.Tensor:
+                    w: torch.Tensor, nvec=None) -> torch.Tensor:
     """out[b,n,c] = sum_k w[k,c] * x[b, neigh[b,n,k], c], missing tap (-1)
     = 0, fp32 accumulation; x: (B, N, C) float32/bfloat16, neigh:
     (B, N, 27) int32, w: (27, C) (cast to x's dtype). The same function
-    as ``ops/conv.octree_dwconv``, its plain version."""
+    as ``ops/conv.octree_dwconv``, its plain version. ``nvec`` sets the
+    block's channel slice in 16-byte vectors (``resident_slice``); a
+    narrower slice fits more blocks on an SM."""
     if x.device.type == "cpu":
         return plain.octree_dwconv(x, neigh, w.to(x.dtype))
     _check_device(x, "dwconv_resident")
@@ -131,7 +133,7 @@ def dwconv_resident(x: torch.Tensor, neigh: torch.Tensor,
         raise ValueError("dwconv_resident: x must be 16-byte aligned")
     props = torch.cuda.get_device_properties(x.device)
     smem = getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
-    nvec = resident_slice(N, C, x.element_size(), smem)
+    nvec = resident_slice(N, C, x.element_size(), smem, nvec)
     out = torch.empty_like(x)
     fn = build.library("gather").dwconv_resident
     fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]

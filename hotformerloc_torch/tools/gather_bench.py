@@ -12,25 +12,31 @@ taps) and one JSON line per variant:
 
   flat_gather     ops/conv._gather_rows, (B, N, 27, C) materialised
   dw_current      the depthwise conv as the model runs it: K3
-                  (ops/kernels/octree_conv.octree_dwconv)
+                  (ops/kernels/octree_conv.octree_dwconv); and at fp32
+                  (dw_current_fp32)
   sorted_gather   flat_gather on the same indices, sorted
   rowsize_x4/x16  N*K/f random rows of f*C: is the cost per index?
   pl_take         take_rows, the counterpart of the TPU's k_take: tap 0
                   of every node, a missing tap read as row 0
   pl_dw           dwconv_resident, the counterpart of the TPU's k_dw:
-                  the depthwise conv with x resident in shared memory
+                  the depthwise conv with x resident in shared memory;
+                  pl_dw_nvec1 with the narrower channel slice (three
+                  blocks per SM instead of one), pl_dw_fp32 at fp32
   onehot_window   the banded one-hot formulation (plain einsums, as it
                   was plain XLA on the TPU); its escape fraction printed
 
 The oracle is ``ops/conv.octree_dwconv`` (plain flat gather), the
 counterpart of the JAX tool's ``_dwconv_fwd_impl``. dw_current and
-pl_dw are held against it, pl_take against its plain version; a failed
-check raises and the tool exits non-zero. On the card ``ms`` is the
-median CUDA-event time of one call, the host's launch included, and
-``device_ms`` the call's kernel time under torch.profiler; with
-``--device cpu`` the line gives ``cpu_ms`` on the host clock instead,
-which is no device number. The tool writes a file only under ``--out``
-(gather_bench.json).
+pl_dw are held against it (one bf16 ulp, 1e-5 at fp32), pl_take
+against its plain version bit for bit; a failed check raises and the
+tool exits non-zero. On the card ``ms`` is the median CUDA-event time of
+one call, the host's launch included, and ``device_ms`` the call's
+kernel time under torch.profiler; with ``--device cpu`` the line gives
+``cpu_ms`` on the host clock instead, which is no device number. The
+kernel lines (pl_*) also give their plain version's time (``plain_*``),
+torch.index_select's for pl_take (``library_*``), and ``bound_ms``, the
+least time an H100 could take for the same bytes and operations. The
+tool writes a file only under ``--out`` (gather_bench.json).
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import sys
 import numpy as np
 import torch
 
-from hotformerloc_torch.utils.profiling import device_ms, time_fn
+from hotformerloc_torch.utils.profiling import bound_ms, device_ms, time_fn
 
 K_TAPS = 27
 C_CHANNELS = 256
@@ -108,14 +114,56 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
-def timing(dev: torch.device, fn, reps: int) -> dict:
+def check_equal(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Hold a copy ``out`` against ``ref`` bit for bit; returns 0.0."""
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        raise AssertionError(f"{name}: differs from its oracle")
+    return 0.0
+
+
+def timing(dev: torch.device, fn, reps: int, prefix: str = "") -> dict:
     """On the card {"ms": CUDA-event median of one call, host launch
     included; "device_ms": the call's kernel time under the profiler};
-    on the CPU {"cpu_ms": host-clock median}."""
+    on the CPU {"cpu_ms": host-clock median}; keys after ``prefix``."""
     st = time_fn(fn, iters=reps, warmup=2)
     if dev.type != "cuda":
-        return {"cpu_ms": st["median_ms"]}
-    return {"ms": st["median_ms"], "device_ms": device_ms(fn, iters=reps)}
+        return {prefix + "cpu_ms": st["median_ms"]}
+    return {prefix + "ms": st["median_ms"],
+            prefix + "device_ms": device_ms(fn, iters=reps)}
+
+
+def yardsticks(dev: torch.device, reps: int, plain, library, cost: tuple,
+               dtype: str) -> dict:
+    """What a probe kernel's time is read against: its plain version's
+    time (``plain_*``), the time of one PyTorch call that computes the
+    same function (``library_*``; ``library`` None where there is none),
+    and ``bound_ms`` / ``bound_by``, the least time an H100 could take
+    for ``cost`` = (bytes, operations of ``dtype``)."""
+    ent = timing(dev, plain, reps, "plain_")
+    if library is not None:
+        ent.update(timing(dev, library, reps, "library_"))
+    ent["bound_ms"], ent["bound_by"] = bound_ms(*cost, dtype)
+    return ent
+
+
+def take_library(x: torch.Tensor, idx: torch.Tensor):
+    """(torch.index_select computing take_rows(x, idx) on flat row
+    indices prepared outside the call, the bytes take_rows must move:
+    each distinct source row read once, the output written once, and
+    each index in its own 32-byte sector where they lie that far
+    apart)."""
+    Nx, C = x.shape[-2:]
+    rows = idx.long().clamp(0, Nx - 1)
+    if x.dim() == 3:
+        rows = rows + torch.arange(x.shape[0], device=x.device)[:, None] * Nx
+    flat = rows.reshape(-1)
+    x2 = x.reshape(-1, C)
+    shape = (*idx.shape, C)
+    esz = x.element_size()
+    per_idx = 32 if idx.stride(-1) * 4 >= 32 else 4
+    nbytes = ((int(torch.unique(flat).numel()) + idx.numel()) * C * esz
+              + idx.numel() * per_idx)
+    return lambda: torch.index_select(x2, 0, flat).reshape(shape), nbytes
 
 
 def parse_device(name: str) -> torch.device:
@@ -132,7 +180,9 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> dict:
+    """The tool's work: prints its lines and returns {"head",
+    "locality", "results": {variant: line}}."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=8)
@@ -149,8 +199,9 @@ def main(argv=None) -> int:
     nj = real_tables(B, device=dev)
     neigh = nj.cpu().numpy()
     N = neigh.shape[1]
+    taps = int((neigh >= 0).sum())
     head = {"device": device_name(dev), "B": B, "N": N, "C": C, "K": K,
-            "valid_taps": round(float((neigh >= 0).mean()), 4)}
+            "valid_taps": round(taps / neigh.size, 4)}
     print(json.dumps(head), flush=True)
     stats = locality(neigh)
     print(json.dumps({"locality": stats}), flush=True)
@@ -160,14 +211,17 @@ def main(argv=None) -> int:
         np.float32)).to(dev, torch.bfloat16)
     w = torch.from_numpy(rng.normal(0, 0.2, (K, C)).astype(
         np.float32)).to(dev, torch.bfloat16)
+    x32, w32 = x.float(), w.float()
     ref = plain.octree_dwconv(x, nj, w)
+    ref32 = plain.octree_dwconv(x32, nj, w32)
     results = {}
 
     def record(name, fn, check=None, extra=None):
-        ent = timing(dev, fn, args.reps)
+        ent = {}
         if check is not None:
-            out, oracle = check
-            ent["maxdiff"] = check_close(name, out, oracle)
+            held, out, oracle = check
+            ent["maxdiff"] = held(name, out, oracle)
+        ent.update(timing(dev, fn, args.reps))
         ent.update(extra or {})
         results[name] = ent
         print(json.dumps({name: ent}), flush=True)
@@ -175,9 +229,16 @@ def main(argv=None) -> int:
     def flat_gather(xx, nn):
         return plain._gather_rows(xx, nn).reshape(B, N, K * C)[:, :, :C]
 
+    def dw_cost(xx):
+        esz = xx.element_size()
+        return (2 * B * N * C * esz + nj.numel() * 4 + K * C * esz,
+                2 * taps * C)
+
     record("flat_gather", lambda: flat_gather(x, nj))
     record("dw_current", lambda: kconv.octree_dwconv(x, nj, w),
-           (kconv.octree_dwconv(x, nj, w), ref))
+           (check_close, kconv.octree_dwconv(x, nj, w), ref))
+    record("dw_current_fp32", lambda: kconv.octree_dwconv(x32, nj, w32),
+           (check_close, kconv.octree_dwconv(x32, nj, w32), ref32))
 
     srt = np.sort(np.where(neigh >= 0, neigh, 0).reshape(B, -1),
                   axis=1).reshape(B, N, K)
@@ -192,10 +253,28 @@ def main(argv=None) -> int:
             xf, idxf).reshape(B, N, K * C)[:, :, :C])
 
     tap0 = nj[..., 0]
+    lib, nbytes = take_library(x, tap0)
+    take_ref = kgather.take_rows_reference(x, tap0)
+    check_equal("pl_take library", lib(), take_ref)
     record("pl_take", lambda: kgather.take_rows(x, tap0),
-           (kgather.take_rows(x, tap0), kgather.take_rows_reference(x, tap0)))
+           (check_equal, kgather.take_rows(x, tap0), take_ref),
+           yardsticks(dev, args.reps,
+                      lambda: kgather.take_rows_reference(x, tap0), lib,
+                      (nbytes, 0), "bf16"))
     record("pl_dw", lambda: kgather.dwconv_resident(x, nj, w),
-           (kgather.dwconv_resident(x, nj, w), ref))
+           (check_close, kgather.dwconv_resident(x, nj, w), ref),
+           yardsticks(dev, args.reps, lambda: plain.octree_dwconv(x, nj, w),
+                      None, dw_cost(x), "bf16"))
+    # the narrower slice: half the shared memory per block, so three
+    # blocks (48 warps) share an SM where the default slice has one
+    record("pl_dw_nvec1", lambda: kgather.dwconv_resident(x, nj, w, nvec=1),
+           (check_close, kgather.dwconv_resident(x, nj, w, nvec=1), ref),
+           {k: results["pl_dw"][k] for k in ("bound_ms", "bound_by")})
+    record("pl_dw_fp32", lambda: kgather.dwconv_resident(x32, nj, w32),
+           (check_close, kgather.dwconv_resident(x32, nj, w32), ref32),
+           yardsticks(dev, args.reps,
+                      lambda: plain.octree_dwconv(x32, nj, w32), None,
+                      dw_cost(x32), "fp32"))
 
     S, HR = ONEHOT_TILE, ONEHOT_HALO
     W = S + 2 * HR
@@ -226,6 +305,11 @@ def main(argv=None) -> int:
             json.dump({**head, "locality": stats, "results": results}, fh,
                       indent=1)
         print(f"wrote {path}", flush=True)
+    return {"head": head, "locality": stats, "results": results}
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

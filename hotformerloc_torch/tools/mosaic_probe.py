@@ -11,10 +11,14 @@ subcommand runs the port's kernels at the JAX tool's shapes and seeds,
 holds each against its plain version and times it; one JSON line per
 probe (``ms``: median CUDA-event time of one call, the host's launch
 included; ``device_ms``: its kernel time under torch.profiler; ``cpu_ms``
-on the host clock with ``--device cpu``, which is no device number). A failed
-build, launch or check raises and the tool exits non-zero: nothing is
-caught. ``--out`` writes mosaic_probe_<subcommand>.json there; nothing
-else is written.
+on the host clock with ``--device cpu``, which is no device number). The
+constructs and gather lines also give the plain version's time
+(``plain_*``), that of one PyTorch call computing the same function where
+there is one (``library_*``: torch.bmm, embedding, index_add, F.pad,
+softmax, mul, index_select), and ``bound_ms``, the least time an H100
+could take for the same bytes and operations. A failed build, launch or
+check raises and the tool exits non-zero: nothing is caught. ``--out``
+writes mosaic_probe_<subcommand>.json there; nothing else is written.
 
   constructs  the ten construct kernels of ops/kernels/constructs.py
               (WT=8, T=49, K=48, C=256, H=16, hd=16, R=231)
@@ -42,8 +46,10 @@ import sys
 import numpy as np
 import torch
 
-from hotformerloc_torch.tools.gather_bench import (check_close, device_name,
-                                                   parse_device, timing)
+from hotformerloc_torch.tools.gather_bench import (check_close, check_equal,
+                                                   device_name, parse_device,
+                                                   take_library, timing,
+                                                   yardsticks)
 
 WT, T, C, H, K, R = 8, 49, 256, 16, 48, 231
 HD = C // H
@@ -110,6 +116,69 @@ def check_construct(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
+def construct_cost(name: str, args: tuple, out: torch.Tensor) -> tuple:
+    """(bytes, bf16 operations) of one call of a construct: each input
+    byte it needs read once, its output written once; operations for the
+    three products (bf16 inputs, fp32 sums) only."""
+    def nb(t):
+        return t.numel() * t.element_size()
+    if name in ("headloop", "dk", "packbias"):
+        q, k, hd = args
+        width = 2 * hd if name == "headloop" else hd
+        WT, T_ = q.shape[:2]
+        reads = (1 if name == "packbias" else 2) * WT * T_ * width * 2
+        flops = 2 * WT * T_ * (T_ * width if name != "dk" else hd * hd)
+        return reads + nb(out), flops
+    if name == "slicestore":
+        return 2 * nb(out), 0
+    if name == "selloop":
+        return nb(args[0]) + 4 * args[2] + nb(out), 0
+    if name == "dtab":
+        return nb(args[0]) + nb(args[1]) + nb(out), 0
+    return sum(nb(a) for a in args if isinstance(a, torch.Tensor)) \
+        + nb(out), 0
+
+
+def construct_library(name: str, args: tuple):
+    """One PyTorch call that computes the construct's function, on
+    inputs prepared outside the call, or None where there is none."""
+    F = torch.nn.functional
+    if name in ("headloop", "dk", "packbias"):
+        q, k, hd = args
+        width = 2 * hd if name == "headloop" else hd
+        qa = q[..., :width].float().contiguous()
+        ka = k[..., :width].float().contiguous()
+        if name == "dk":
+            qt = qa.transpose(1, 2)
+            return lambda: torch.bmm(qt, ka)
+        kt = ka.transpose(1, 2)
+        return lambda: torch.bmm(qa, kt)
+    if name == "reshape":
+        return lambda: args[0].view(-1, 1).float()
+    if name == "onehot4d":
+        tab = args[1].to(torch.bfloat16).float()
+        return lambda: F.embedding(args[0], tab)
+    if name == "dtab":
+        idx, g, R_ = args
+        il = idx.reshape(-1).long()
+        gr = g.to(torch.bfloat16).float().reshape(-1, g.shape[-1])
+        zero = torch.zeros((R_, g.shape[-1]), device=g.device)
+        return lambda: zero.index_add(0, il, gr)
+    if name == "pad":
+        return lambda: F.pad(args[0], (args[1], 0, args[1], 0))
+    if name == "selloop":
+        idx, tab, nsel = args
+        lut = torch.zeros((tab.shape[0], 1), device=tab.device)
+        lut[:nsel, 0] = tab[:nsel, 0]
+        return lambda: F.embedding(idx, lut)[..., 0]
+    if name == "softmax":
+        return lambda: torch.softmax(args[0], dim=-1)
+    if name == "slicestore":
+        q, width = args
+        return lambda: torch.mul(q[..., :width], 2)
+    return None
+
+
 def constructs(dev, reps):
     from hotformerloc_torch.ops.kernels.constructs import CONSTRUCTS
 
@@ -117,10 +186,18 @@ def constructs(dev, reps):
     for name, args in construct_inputs().items():
         fn, ref_fn, _ = CONSTRUCTS[name]
         a = to_device(args, dev)
-        err = check_construct(name, fn(*a), ref_fn(*a))
+        out = fn(*a)
+        err = check_construct(name, out, ref_fn(*a))
+        lib = construct_library(name, a)
+        if lib is not None:              # the yardstick computes the same
+            check_construct(name, lib().reshape(out.shape), out)
         lines.append({"probe": CONSTRUCT_PROBES[name][0], "construct": name,
                       "ok": True, "maxdiff": err,
-                      **timing(dev, lambda: fn(*a), reps)})
+                      "out": list(out.shape),
+                      "dtype": str(out.dtype).split(".")[1],
+                      **timing(dev, lambda: fn(*a), reps),
+                      **yardsticks(dev, reps, lambda: ref_fn(*a), lib,
+                                   construct_cost(name, a, out), "bf16")})
     return lines
 
 
@@ -147,22 +224,28 @@ def gather_inputs() -> list:
 
 
 def gather(dev, reps):
-    from hotformerloc_torch.ops.kernels.gather import take_rows
+    from hotformerloc_torch.ops.kernels.gather import (take_rows,
+                                                       take_rows_reference)
 
     lines = []
     for name, x, idx in gather_inputs():
         want = x.float().numpy()[idx.numpy()]
         xd, idd = x.to(dev), idx.to(dev)
-        out = take_rows(xd, idd).float().cpu().numpy()
-        err = float(np.abs(out - want).max())
+        out = take_rows(xd, idd)
+        err = float(np.abs(out.float().cpu().numpy() - want).max())
         if err != 0.0:
             raise AssertionError(f"{name}: take_rows differs from x[idx] "
                                  f"by {err}")
+        lib, nbytes = take_library(xd, idd)
+        check_equal(f"{name} library", lib(), out)
         lines.append({"probe": name, "shape": [x.shape[0], idx.shape[0],
                                                x.shape[1]],
                       "dtype": str(x.dtype).split(".")[1], "ok": True,
                       "maxdiff": err,
-                      **timing(dev, lambda: take_rows(xd, idd), reps)})
+                      **timing(dev, lambda: take_rows(xd, idd), reps),
+                      **yardsticks(dev, reps,
+                                   lambda: take_rows_reference(xd, idd), lib,
+                                   (nbytes, 0), "bf16")})
     return lines
 
 
@@ -304,7 +387,8 @@ SUBCOMMANDS = {"constructs": constructs, "attn": attn, "gather": gather,
                "band": band}
 
 
-def main(argv=None) -> int:
+def run(argv=None) -> list:
+    """The tool's work: prints its lines and returns them."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("cmd", nargs="?", default="constructs",
                     choices=sorted(SUBCOMMANDS))
@@ -325,6 +409,11 @@ def main(argv=None) -> int:
             json.dump({"device": device_name(dev), "lines": lines}, fh,
                       indent=1)
         print(f"wrote {path}", flush=True)
+    return lines
+
+
+def main(argv=None) -> int:
+    run(argv)
     return 0
 
 

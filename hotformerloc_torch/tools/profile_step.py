@@ -25,6 +25,8 @@ import time
 import numpy as np
 import torch
 
+from hotformerloc_torch.utils.profiling import device_us
+
 # (class, substrings of the CUDA kernel name), first match wins. The
 # forward bodies also run the dx of K4/K6 (dwconv_fwd_kernel,
 # conv_fwd_kernel), which therefore count under K3/K5 here.
@@ -52,13 +54,6 @@ def classify(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return cls
     return "other"
-
-
-def device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
 
 
 def main(argv=None) -> int:

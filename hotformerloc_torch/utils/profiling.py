@@ -4,9 +4,11 @@ Counterpart of hotformerloc_tpu/utils/profiling.py. A CUDA launch
 returns before the card finishes, so ``block`` and ``fetch_sync``
 synchronise the devices of the tensors they are given; ``time_fn`` times
 CUDA work with CUDA events and CPU work with the host clock, and says
-which clock it used; ``trace`` and ``annotate`` wrap ``torch.profiler``;
-``print_info`` counts parameters by module path; ``step_cost`` counts
-FLOPs with ``torch.utils.flop_counter``.
+which clock it used; ``device_ms`` sums a call's kernel time under
+``torch.profiler``, and ``bound_ms`` gives the least time an H100 could
+take for a given work; ``trace`` and ``annotate`` wrap
+``torch.profiler``; ``print_info`` counts parameters by module path;
+``step_cost`` counts FLOPs with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def fetch_sync(tree) -> None:
 
 
 def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,
-            label: Optional[str] = None, **kw) -> Dict[str, Union[float, str]]:
+            **kw) -> Dict[str, Union[float, str]]:
     """Time ``fn(*args, **kw)`` after ``warmup`` calls. When the warm-up
     results hold a CUDA tensor, each call is timed with CUDA events
     (``clock`` "cuda_events": device time of the call); otherwise with
@@ -71,17 +73,28 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,
             t0 = time.perf_counter()
             fn(*args, **kw)
             times.append((time.perf_counter() - t0) * 1e3)
-    stats = {"median_ms": statistics.median(times),
-             "mean_ms": statistics.fmean(times), "min_ms": min(times),
-             "iters": iters, "clock": "cuda_events" if cuda else "host"}
-    if label:
-        print(f"[time] {label}: {stats['median_ms']:.3f} ms median "
-              f"(mean {stats['mean_ms']:.3f}, min {stats['min_ms']:.3f}; "
-              f"{stats['clock']})")
-    return stats
+    return {"median_ms": statistics.median(times),
+            "mean_ms": statistics.fmean(times), "min_ms": min(times),
+            "iters": iters, "clock": "cuda_events" if cuda else "host"}
 
 
-def _self_device_us(evt) -> float:
+# NVIDIA H100 SXM, data sheet: HBM3 rate and dense peak operation rates
+# (bf16 on tensor cores, fp32 on CUDA cores)
+H100_BYTES_S = 3.35e12
+H100_PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
+    """(ms, "bytes" or "operations"): the least time an H100 could take
+    for work that moves ``nbytes`` and does ``flops`` operations of
+    ``dtype`` ("fp32" or "bf16"), the larger of the two times."""
+    tb, tf = nbytes / H100_BYTES_S, flops / H100_PEAK_FLOPS[dtype]
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def device_us(evt) -> float:
+    """Self device time in µs of one ``key_averages()`` entry, under the
+    attribute name of either profiler generation."""
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
@@ -103,7 +116,7 @@ def device_ms(fn: Callable, *args, iters: int = 10, **kw) -> float:
         for _ in range(iters):
             out = fn(*args, **kw)
         block(out)
-    us = sum(_self_device_us(e) for e in prof.key_averages()
+    us = sum(device_us(e) for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA)
     if us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -111,25 +124,21 @@ def device_ms(fn: Callable, *args, iters: int = 10, **kw) -> float:
 
 
 @contextlib.contextmanager
-def trace(logdir: str, annotate: Optional[str] = None):
+def trace(logdir: str):
     """Profile the block with torch.profiler (CPU, and CUDA where there
     is a card) and write ``trace.json`` (Chrome trace format) and
     ``kernels.txt`` (key_averages) into ``logdir``.
 
     with trace("out/tr"): step(batch, 0)
     """
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     with profile(activities=acts) as prof:
-        if annotate:
-            with record_function(annotate):
-                yield prof
-        else:
-            yield prof
+        yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
     with open(os.path.join(logdir, "kernels.txt"), "w") as f:
         f.write(prof.key_averages().table(row_limit=60))

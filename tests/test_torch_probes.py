@@ -15,6 +15,9 @@ held against the JAX package:
   --device cpu, pass their own checks and write only under --out;
 * every new wrapper refuses a device that is neither CPU nor CUDA, and a
   tool asked for a missing card exits instead of falling back;
+* the yardsticks the tools time beside each kernel (one PyTorch call of
+  the same function) compute the kernel's function, and the bound
+  helper takes the larger of the byte and operation times;
 * the profiling helpers time, trace, count parameters and FLOPs.
 
 The kernels themselves run only on the card (chip_smoke.py's probes
@@ -220,12 +223,24 @@ def test_gather_bench_runs_on_cpu(tmp_path, monkeypatch, capsys):
     assert lines[0]["device"] == "cpu" and lines[0]["N"] == 4224
     res = {k: v for ln in lines[2:] for k, v in ln.items()}
     assert sorted(res) == sorted(
-        ["flat_gather", "dw_current", "sorted_gather", "rowsize_x4",
-         "rowsize_x16", "pl_take", "pl_dw", "onehot_window"])
+        ["flat_gather", "dw_current", "dw_current_fp32", "sorted_gather",
+         "rowsize_x4", "rowsize_x16", "pl_take", "pl_dw", "pl_dw_nvec1",
+         "pl_dw_fp32", "onehot_window"])
     for name, ent in res.items():
         assert "cpu_ms" in ent and "ms" not in ent, name
-    for name in ("dw_current", "pl_take", "pl_dw"):
+    for name in ("dw_current", "dw_current_fp32", "pl_take", "pl_dw",
+                 "pl_dw_nvec1", "pl_dw_fp32"):
         assert res[name]["maxdiff"] == 0.0, name    # CPU: plain == oracle
+        assert res[name]["bound_ms"] > 0 if name[:2] == "pl" else True
+    for name in ("pl_take", "pl_dw", "pl_dw_fp32"):
+        assert "plain_cpu_ms" in res[name], name
+    assert "library_cpu_ms" in res["pl_take"]
+    # T2's bytes: x read and out written once, the table, the weights
+    N, C = 4224, 256
+    want = (2 * N * C * 2 + N * 27 * 4 + 27 * C * 2) / 3.35e12 * 1e3
+    assert res["pl_dw"]["bound_ms"] == pytest.approx(want)
+    assert res["pl_dw_fp32"]["bound_ms"] == pytest.approx(
+        want + (2 * N * C + 27 * C) * 2 / 3.35e12 * 1e3)
     assert 0.0 <= res["onehot_window"]["esc_frac"] < 0.01
     assert _tree(tmp_path) == ["out", "out/gather_bench.json"]
     assert _digest(ab) == before
@@ -242,8 +257,12 @@ def test_mosaic_probe_runs_on_cpu(cmd, tmp_path, monkeypatch, capsys):
     assert len(lines) == 1 + want
     for ln in lines[1:]:
         assert ln["ok"] is True
+        # no device time on the CPU; bound_ms is the H100's least time
+        # for the work, computed, not measured
         assert not any(k == "ms" or k.endswith("_ms") and "cpu" not in k
-                       for k in ln), ln
+                       and k != "bound_ms" for k in ln), ln
+        if cmd in ("constructs", "gather"):
+            assert ln["bound_ms"] > 0 and "plain_cpu_ms" in ln, ln
     assert _tree(tmp_path) == ["out", f"out/mosaic_probe_{cmd}.json"]
     if cmd == "attn":
         named = [c for ln in lines[1:] for c in ln["cases"] + ln["bwd_cases"]]
@@ -285,6 +304,9 @@ def test_resident_slice_fits_shared_memory():
     assert kgather.resident_slice(4224, 256, 2) == 2
     assert kgather.resident_slice(4224, 256, 4) == 2
     assert kgather.resident_slice(10000, 256, 2) == 1
+    assert kgather.resident_slice(4224, 256, 2, nvec=1) == 1
+    with pytest.raises(ValueError, match="no channel slice"):
+        kgather.resident_slice(10000, 256, 2, nvec=2)
     with pytest.raises(ValueError, match="no channel slice"):
         kgather.resident_slice(20000, 256, 2)
 
@@ -312,7 +334,7 @@ def test_print_info_and_step_cost(capsys):
 
 
 def test_trace_writes_only_into_its_logdir(tmp_path):
-    with profiling.trace(str(tmp_path / "tr"), annotate="step"):
+    with profiling.trace(str(tmp_path / "tr")):
         with profiling.annotate("inner"):
             torch.ones(16, 16) @ torch.ones(16, 16)
     assert _tree(tmp_path) == ["tr", "tr/kernels.txt", "tr/trace.json"]
@@ -324,3 +346,45 @@ def test_device_ms_refuses_work_without_device_time():
     # returning a number that could pass for one
     with pytest.raises(RuntimeError, match="no device time"):
         profiling.device_ms(lambda: torch.ones(8) * 2, iters=2)
+
+
+@pytest.mark.parametrize("name", sorted(tprobe.CONSTRUCT_PROBES))
+def test_construct_library_call_computes_the_construct(name):
+    args = tprobe.construct_inputs()[name]
+    fn, ref_fn, _ = kcon.CONSTRUCTS[name]
+    ref = ref_fn(*args)
+    lib = tprobe.construct_library(name, args)
+    assert lib is not None, name        # one PyTorch call for every one
+    tprobe.check_construct(name, lib().reshape(ref.shape), ref)
+    nbytes, flops = tprobe.construct_cost(name, args, ref)
+    assert nbytes >= ref.numel() * ref.element_size()
+    assert (flops > 0) == (name in ("headloop", "dk", "packbias"))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_take_library_matches_take_rows(case):
+    name, x, idx = tprobe.gather_inputs()[case]
+    lib, nbytes = tbench.take_library(x, idx)
+    assert torch.equal(lib(), kgather.take_rows(x, idx)), name
+    rows = len(np.unique(idx.numpy()))
+    assert nbytes == ((rows + idx.numel()) * x.shape[1] * x.element_size()
+                      + 4 * idx.numel())
+
+
+def test_take_library_on_a_strided_batched_table(tables):
+    port, _ = tables
+    nj = torch.from_numpy(port)
+    x = torch.arange(2 * port.shape[1] * 8, dtype=torch.float32).reshape(
+        2, -1, 8)
+    lib, nbytes = tbench.take_library(x, nj[..., 0])
+    assert torch.equal(lib(), kgather.take_rows_reference(x, nj[..., 0]))
+    # tap 0 of a 27-wide row: each index in its own 32-byte sector
+    assert nbytes % 32 == 0 and nbytes > 32 * nj[..., 0].numel()
+
+
+def test_bound_ms_takes_the_larger_time():
+    ms, by = profiling.bound_ms(3.35e9, 0, "bf16")
+    assert ms == pytest.approx(1.0) and by == "bytes"
+    ms, by = profiling.bound_ms(0, 2 * 67e9, "fp32")
+    assert ms == pytest.approx(2.0) and by == "operations"
+    assert profiling.bound_ms(1, 989e9, "bf16")[1] == "operations"
