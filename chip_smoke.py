@@ -16,12 +16,16 @@ script exits non-zero without the final line:
    plain PyTorch version on the card at fp32 and bf16 (tolerances in
    TOL), and CUDA-event times (median of REPS launches after warm-up) of
    the kernel, the plain version and, for K1, scaled_dot_product_attention
-   given a materialised bias (a yardstick the package never calls).
+   given a materialised bias (a yardstick the package never calls). K1
+   runs the body attn_body picks (bf16: the tensor-core body); where that
+   is the tensor-core body, the CUDA-core body is checked and timed on the
+   same inputs too (cc_ms).
 4. slice: oxford_config with seeded random weights embeds 32 synthetic
    clouds (16 uniform clouds of 4096 points, each twice with sigma 0.01
    noise) through make_embed_fn in bf16 and fp32. The launch counters,
    zeroed just before the bf16 run and read just after, must show K1=34,
-   K3=24, K5=3; descriptors must be finite and unit-norm with no octree
+   K3=24, K5=3, all 34 K1 launches on the tensor-core body (none at
+   fp32); descriptors must be finite and unit-norm with no octree
    overflow; the fp32 kernel descriptors must match the plain path on
    the same card (cos >= 0.9999, max abs <= 1e-4). Retrieval recall@1 of
    the noisy copies against the originals is printed for information
@@ -33,6 +37,8 @@ script exits non-zero without the final line:
    CUDA-event times of both and, for K2, scaled_dot_product_attention
    forward + backward with a materialised bias that requires grad (a
    yardstick that stops at dbias and does not fold it into the table).
+   K2 is also timed without the table gradient (nodtab_ms) and, where it
+   runs the tensor-core body, as the CUDA-core body (cc_ms).
 6. train: the Oxford multistage step (make_train_step, batch 32 as 4
    microbatches of 8, truncatedsmoothap, Adam with L2 weight decay 1e-4
    on bench.py's schedule, DropPath 0.5). At fp32 with TF32 off, one
@@ -41,9 +47,10 @@ script exits non-zero without the final line:
    and the stage-3 embeddings stage 1's (max abs <= 1e-6). In bf16 on
    fp32 parameters, the launch counters of one step (zeroed just before,
    read just after) must equal the counts the shape table gives (K1 272,
-   K2 136, K3 192, K4 96, K5 24, K6 12); loss, stats and gradients must
-   be finite; then 3 warm-up and 10 timed steps give step ms, submaps/s,
-   octree + plan ms per step and peak memory.
+   K2 136, K3 192, K4 96, K5 24, K6 12; every K1 and K2 launch on the
+   tensor-core bodies); loss, stats and gradients must be finite; then 3
+   warm-up and 10 timed steps give step ms, submaps/s, octree + plan ms
+   per step and peak memory.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, with K3 on the same inputs) and mosaic_probe
@@ -60,9 +67,10 @@ script exits non-zero without the final line:
    after it, must equal the launches its checked and timed calls make.
 8. the kernels line {"kernels": [...]} (the six model kernels, forward
    rows per forward of batch 32 and backward rows per train step of
-   batch 32; then the twelve probe kernels, per call at the tools'
-   shapes, launches per run of the tools), then {"ok": true, "device":
-   ...}.
+   batch 32, K1/K2 with their tensor-core launches, the CUDA-core body's
+   time and K2's time without the table gradient; then the twelve probe
+   kernels, per call at the tools' shapes, launches per run of the
+   tools), then {"ok": true, "device": ...}.
 Every phase prints its seconds.
 """
 import json
@@ -223,12 +231,24 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, pmask, cases, bound, rnd):
         for dt, tdt in dtypes.items():
             q, k, v, g = (t.to(tdt) for t in t32)
             args = (q, k, v, xyz, mask, table, g, H, bnd)
+            row[f"body_{dt}"] = kattn.attn_body(tdt, T, C, H, bnd)
             out = kattn.window_attention_bwd(*args)
             ref = kattn.window_attention_bwd_reference(*args)
-            row[f"err_{dt}"] = check(out, ref, ("act",) * 3 + ("weight",),
-                                     "window_attn_bwd", dt)
+            kinds = ("act",) * 3 + ("weight",)
+            row[f"err_{dt}"] = check(out, ref, kinds, "window_attn_bwd", dt)
             row[f"ms_{dt}"] = time_ms(
                 lambda: kattn.window_attention_bwd(*args))
+            # without the table gradient: the histogram's share
+            row[f"nodtab_ms_{dt}"] = time_ms(
+                lambda: kattn.window_attention_bwd(*args, need_dtable=False))
+            if row[f"body_{dt}"] == "tc":
+                # the CUDA-core body on the same inputs: before / after
+                cc = kattn.window_attention_bwd(*args, body="cc")
+                row[f"cc_err_{dt}"] = check(cc, ref, kinds,
+                                            "window_attn_bwd (cc)", dt)
+                row[f"cc_ms_{dt}"] = time_ms(
+                    lambda: kattn.window_attention_bwd(*args, body="cc"))
+                del cc
             row[f"plain_ms_{dt}"] = time_ms(
                 lambda: kattn.window_attention_bwd_reference(*args))
             # yardstick: SDPA forward + backward, bias materialised and
@@ -400,6 +420,9 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
                 "window_attn_bwd": 136, "octree_dwconv_bwd": 96,
                 "octree_conv_bwd": 12}:
         raise AssertionError(f"train-path shape table is off: {want}")
+    # every bf16 K1 / K2 launch of the step takes the tensor-core bodies
+    want.update(window_attn_tc=want["window_attn"],
+                window_attn_bwd_tc=want["window_attn_bwd"])
     want = {k: want.get(k, 0) for k in launches}   # no probe kernels
     if launches != want:
         raise AssertionError(f"train launches {launches} != {want}")
@@ -456,6 +479,7 @@ def probes_phase(torch):
     launches its checked and timed calls make. Returns (kernels-line
     entries built from the tools' own lines, phase numbers)."""
     from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.kernels.constructs import CONSTRUCTS
     from hotformerloc_torch.tools import gather_bench, mosaic_probe
 
@@ -467,13 +491,20 @@ def probes_phase(torch):
         mosaic_probe.gather_inputs())
     # attn: per function K1 is checked twice (forward; forward +
     # backward) and timed twice, K2 once each; band likewise K3 and K4.
+    # the attn functions' bf16 launches take the tensor-core bodies
+    n_tc = sum(kattn.attn_body(torch.bfloat16, mosaic_probe.K_ATTN + G_, C_,
+                               H_, mosaic_probe.BND_ATTN) == "tc"
+               for H_, C_, G_, _ in mosaic_probe.ATTN_FUNCTIONS)
     want = {"gather_bench": {"take_rows": per, "dwconv_resident": 3 * per,
                              "octree_dwconv": 2 * per},
             "constructs": {k: per for k in cons},
             "gather": {"take_rows": n_take * per},
             "attn": {"window_attn": n_attn * 2 * per,
-                     "window_attn_bwd": n_attn * per},
+                     "window_attn_bwd": n_attn * per,
+                     "window_attn_tc": n_tc * 2 * per,
+                     "window_attn_bwd_tc": n_tc * per},
             "band": {"octree_dwconv": 2 * per, "octree_dwconv_bwd": per}}
+    want["attn"] = {k: v for k, v in want["attn"].items() if v}
     reps = ["--reps", str(PROBE_REPS)]
     runs = {"gather_bench": lambda: gather_bench.run(["--batch", "8", *reps])}
     for cmd in ("constructs", "gather", "attn", "band"):
@@ -641,10 +672,17 @@ def main():
         for dt, tdt in dtypes.items():
             q, k, v = (t.to(tdt) for t in qkv32)
             args = (q, k, v, xyz, mask, table, H, bnd)
+            row[f"body_{dt}"] = kattn.attn_body(tdt, T, C, H, bnd)
             out = kattn.window_attention(*args)
             ref = kattn.window_attention_reference(*args)
             row[f"err_{dt}"] = compare(out, ref, "window_attn", dt)
             row[f"ms_{dt}"] = time_ms(lambda: kattn.window_attention(*args))
+            if row[f"body_{dt}"] == "tc":
+                # the CUDA-core body on the same inputs: before / after
+                cc = kattn.launch_fwd(*args, body="cc")
+                row[f"cc_err_{dt}"] = compare(cc, ref, "window_attn", dt)
+                row[f"cc_ms_{dt}"] = time_ms(
+                    lambda: kattn.launch_fwd(*args, body="cc"))
             row[f"plain_ms_{dt}"] = time_ms(
                 lambda: kattn.window_attention_reference(*args))
             # yardstick: SDPA with the bias and key mask materialised
@@ -744,12 +782,15 @@ def main():
     if want != {"window_attn": 34, "octree_dwconv": 24, "octree_conv": 3}:
         raise AssertionError(f"main-path shape table is off: {want}")
     want = {k: want.get(k, 0) for k in kernels.LAUNCHES}   # no backward
+    # every bf16 K1 launch takes the tensor-core body, no fp32 one does
+    want_fp32 = dict(want)
+    want["window_attn_tc"] = want["window_attn"]
     if launches != want:
         raise AssertionError(f"launches {launches} != expected {want}")
 
     kernels.reset_launches()
     out_fp32 = embed_fp32(pts, pmask)
-    if dict(kernels.LAUNCHES) != want:
+    if dict(kernels.LAUNCHES) != want_fp32:
         raise AssertionError(f"fp32 launches {kernels.LAUNCHES}")
     kernels.reset_launches()
     out_plain = embed_plain(pts, pmask)
@@ -851,11 +892,23 @@ def main():
         mult = "per_step" if is_bwd else "per_forward"
 
         def total(key):
-            vals = [r[key] for r in rows]
+            vals = [r.get(key) for r in rows]
             if any(v is None for v in vals):
                 return None
             return sum(v * r[mult] for v, r in zip(vals, rows))
         by = {r["bound_by_bf16"] for r in rows}
+        if kname.startswith("window_attn"):
+            # the tensor-core bodies' launches; the CUDA-core body on the
+            # same inputs (the PR 1 / PR 2 kernels); K2 without dtable
+            tc = kname + "_tc"
+            extra = {"launches_tc": (train_launches if is_bwd
+                                     else launches)[tc],
+                     "launches_tc_train_step": train_launches[tc],
+                     "cc_ms": total("cc_ms_bf16")}
+            if is_bwd:
+                extra["nodtab_ms"] = total("nodtab_ms_bf16")
+        else:
+            extra = {}
         line.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],
@@ -869,7 +922,7 @@ def main():
             "library_ms": total("library_ms_bf16"),
             "ms_fp32": total("ms_fp32"),
             "plain_ms_fp32": total("plain_ms_fp32"),
-            "bound_ms_fp32": total("bound_ms_fp32"),
+            "bound_ms_fp32": total("bound_ms_fp32"), **extra,
             "units": ("ms per train step of batch 32 (4 microbatches of 8)"
                       if is_bwd else "ms per forward of batch 32")
             + " (bf16 unless _fp32), summed over the path's launches"})

@@ -61,8 +61,10 @@ class WindowAttention(nn.Module):
         use_rpe = self.rpe_table is not None and xyz_w is not None
         qkv = self.qkv(x)
         if self.use_kernels:
+            # strided views of the projection, no copies: the kernels
+            # take rows 3C apart
             q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B * W, T, C)
-                       .contiguous() for i in range(3))
+                       for i in range(3))
             if use_rpe:
                 xyz = (xyz_w.permute(0, 1, 3, 2).reshape(B * W, 3, K)
                        .to(torch.int32).contiguous())

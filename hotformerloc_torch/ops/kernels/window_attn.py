@@ -8,6 +8,14 @@ tensors they run the plain versions ``window_attention_reference`` and
 hotformerloc_tpu/ops/pallas/window_attn.py:_fwd_kernel and _bwd_kernel
 (entry ``fused_window_attention`` and its custom VJP); layouts are the
 JAX entry's.
+
+Each direction has two kernel bodies, and ``attn_body`` picks one from
+the dtype and the shape alone: the tensor-core body ("tc": bf16, head
+width a multiple of 16 up to 64, T <= 64, the window's tiles within
+shared memory) or the CUDA-core body ("cc": fp32, the parity path, and
+any other shape). q, k, v (and g) may be strided views, such as slices of
+one qkv projection: the last dimension contiguous, the three with equal
+strides.
 """
 from __future__ import annotations
 
@@ -22,9 +30,44 @@ from hotformerloc_torch.ops.window import MASK_VALUE
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
-_FWD_ARGTYPES = [_P] * 7 + [_I] * 7 + [_F, _I, _P]
-_BWD_ARGTYPES = [_P] * 11 + [_I] * 8 + [_F, _I, _P]
+_FWD_ARGTYPES = [_P] * 3 + [_L] * 2 + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P]
+_BWD_ARGTYPES = ([_P] * 3 + [_L] * 2 + [_P] * 4 + [_L] * 2 + [_P] * 4
+                 + [_I] * 8 + [_F, _I, _I, _P])
+
+# Shared memory a block may use on the H100 (bytes), and the tensor-core
+# bodies' layout constants (csrc/window_attn.cu: kPad, kBwdHeads).
+SMEM_LIMIT = 232448
+_PAD, _BWD_HEADS = 8, 4
+
+
+def tc_smem(T: int, C: int, H: int, pos_bnd: int) -> int:
+    """Shared-memory bytes of the larger of the tensor-core forward and
+    backward at (T, C, H) with the RPE and its table gradient on, as the
+    launchers in csrc/window_attn.cu size them (K = T at most)."""
+    num = 2 * pos_bnd + 1
+    R = 16 * -(-T // 16)
+    fwd = 2 * 3 * T * (C + _PAD) + 4 * T + 4 * H * 3 * num + 4 * 3 * T
+    bwd = (2 * (4 * T * (C + _PAD) + 2 * _BWD_HEADS * R * (R + _PAD))
+           + 4 * T + 4 * 3 * T                   # mask, coords
+           + 4 * 2 * _BWD_HEADS * 3 * num        # table columns, histogram
+           + 4 * _BWD_HEADS * T * (T | 1)        # fp32 dS
+           + 4 * (9 * T + 6))                    # nodes sorted per axis
+    return max(fwd, bwd)
+
+
+def attn_body(dtype: torch.dtype, T: int, C: int, H: int,
+              pos_bnd: int) -> str:
+    """The kernel body K1 and K2 run for this dtype and shape: "tc" (the
+    tensor-core bodies) for bf16 with hd = C / H a multiple of 16 up to
+    64, T <= 64 and the tiles within ``SMEM_LIMIT``; else "cc" (the
+    CUDA-core bodies, which the wrappers still refuse for T > 64)."""
+    hd = C // H if H > 0 and C % H == 0 else 0
+    if (dtype == torch.bfloat16 and hd > 0 and hd % 16 == 0 and hd <= 64
+            and T <= 64 and tc_smem(T, C, H, pos_bnd) <= SMEM_LIMIT):
+        return "tc"
+    return "cc"
 
 
 def _attn_probs(q, k, xyz, mask, table, num_heads, pos_bnd, use_rpe):
@@ -46,30 +89,42 @@ def _attn_probs(q, k, xyz, mask, table, num_heads, pos_bnd, use_rpe):
     return attn, qf, kf
 
 
+def _rounded(x, dtype):
+    """x rounded to the compute dtype and back to fp32 (a no-op at fp32):
+    where the JAX kernel casts an fp32 intermediate before a product."""
+    return x.to(dtype).float()
+
+
 def window_attention_reference(q, k, v, xyz, mask, table, num_heads: int,
                                pos_bnd: int, use_rpe: bool = True):
     """Plain version of K1: same function as the kernel, computed in fp32
-    and returned in q.dtype. Query rows with mask == 0 are exactly 0."""
+    with the softmax rounded to q.dtype before attn . v (as _fwd_kernel
+    rounds it), returned in q.dtype. Query rows with mask == 0 are
+    exactly 0."""
     BW, T, C = q.shape
     attn, _, _ = _attn_probs(q, k, xyz, mask, table, num_heads, pos_bnd,
                              use_rpe)
     vf = v.float().reshape(BW, T, num_heads, C // num_heads)
-    out = torch.einsum("whts,wshd->wthd", attn, vf).reshape(BW, T, C)
+    out = torch.einsum("whts,wshd->wthd", _rounded(attn, q.dtype),
+                       vf).reshape(BW, T, C)
     return out.to(q.dtype)
 
 
 def window_attention_bwd_reference(q, k, v, xyz, mask, table, g,
                                    num_heads: int, pos_bnd: int,
                                    use_rpe: bool = True):
-    """Plain version of K2: the explicit gradients of
-    ``window_attention_reference`` with respect to q, k, v and the RPE
-    table for the output cotangent g (BW, T, C). Returns (dq, dk, dv) in
-    q.dtype and dtable (3*(2*pos_bnd+1), H) fp32 (zeros without RPE):
+    """Plain version of K2: the gradients of the attention with respect to
+    q, k, v and the RPE table for the output cotangent g (BW, T, C), with
+    _bwd_kernel's rounding points. Returns (dq, dk, dv) in q.dtype and
+    dtable (3*(2*pos_bnd+1), H) fp32 (zeros without RPE):
 
-        dv = attn^T g,  dattn = g v^T,  dlog = attn * (dattn - rowsum(dattn * attn))
-        dq = dlog k / sqrt(hd),  dk = dlog^T q / sqrt(hd)
+        dv = rnd(attn)^T g,  dattn = g v^T,
+        dlog = attn * (dattn - rowsum(dattn * attn))        (fp32)
+        dq = rnd(dlog) k / sqrt(hd),  dk = rnd(dlog)^T q / sqrt(hd)
         dtable[a*num + clip(x_a[t] - x_a[s]) + bnd, h] += dlog[h, t, s]
-    over the (K, K) node block (the G leading relay slots carry no bias).
+    over the (K, K) node block (the G leading relay slots carry no bias),
+    where rnd rounds to q.dtype (nothing at fp32). The table gradient is
+    summed from the fp32 dlog.
     """
     BW, T, C = q.shape
     H = num_heads
@@ -77,12 +132,13 @@ def window_attention_bwd_reference(q, k, v, xyz, mask, table, g,
     attn, qf, kf = _attn_probs(q, k, xyz, mask, table, H, pos_bnd, use_rpe)
     vf = v.float().reshape(BW, T, H, hd)
     gf = g.float().reshape(BW, T, H, hd)
-    dv = torch.einsum("whts,wthd->wshd", attn, gf)
+    dv = torch.einsum("whts,wthd->wshd", _rounded(attn, q.dtype), gf)
     dattn = torch.einsum("wthd,wshd->whts", gf, vf)
     dlog = attn * (dattn - (dattn * attn).sum(-1, keepdim=True))
     scale = hd ** -0.5
-    dq = torch.einsum("whts,wshd->wthd", dlog, kf) * scale
-    dk = torch.einsum("whts,wthd->wshd", dlog, qf) * scale
+    dl_c = _rounded(dlog, q.dtype)
+    dq = torch.einsum("whts,wshd->wthd", dl_c, kf) * scale
+    dk = torch.einsum("whts,wthd->wshd", dl_c, qf) * scale
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
     if use_rpe:
         G = T - xyz.shape[2]
@@ -93,7 +149,18 @@ def window_attention_bwd_reference(q, k, v, xyz, mask, table, g,
     return (*out, dtable)
 
 
+def _rows_ok(t, body) -> bool:
+    """The kernels read a (BW, T, C) operand through two strides with the
+    last dimension contiguous; the tensor-core bodies copy 16-byte rows,
+    so their pointer and strides must be 16-byte aligned."""
+    if t.stride(2) != 1 and t.shape[2] > 1:
+        return False
+    return body == "cc" or (t.data_ptr() % 16 == 0
+                            and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0)
+
+
 def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
+    """Validates the arguments of a launch and returns the body to run."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     BW, T, C = q.shape
@@ -116,61 +183,101 @@ def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
                     or table.dtype != torch.float32):
         raise ValueError(f"{what}: table must be ({3 * num}, {H}) float32")
     for t in (q, k, v, xyz, mask, table):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{what}: inputs must be contiguous and on "
-                             f"{q.device}")
+        if t.device != q.device:
+            raise ValueError(f"{what}: inputs must be on {q.device}")
+    for t in (xyz, mask, table):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: xyz, mask and table must be "
+                             "contiguous")
+    body = attn_body(q.dtype, T, C, H, pos_bnd)
+    if k.stride() != q.stride() or v.stride() != q.stride() \
+            or not all(_rows_ok(t, body) for t in (q, k, v)):
+        raise ValueError(f"{what}: q, k, v need equal strides with the last "
+                         "dimension contiguous (16-byte aligned rows for "
+                         f"the tensor-core body), got {q.stride()}, "
+                         f"{k.stride()}, {v.stride()}")
+    return body
+
+
+def _body(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what,
+          body):
+    """The body to launch: ``attn_body``'s choice, or "cc" on request."""
+    if body not in (None, "cc"):
+        raise ValueError(f"{what}: body must be None or 'cc', got {body!r}")
+    chosen = _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe,
+                    what)
+    return body or chosen
 
 
 def _fwd(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe):
     if q.device.type == "cpu":
         return window_attention_reference(q, k, v, xyz, mask, table,
                                           num_heads, pos_bnd, use_rpe)
-    _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe,
-           "window_attention")
+    return launch_fwd(q, k, v, xyz, mask, table, num_heads, pos_bnd,
+                      use_rpe)
+
+
+def launch_fwd(q, k, v, xyz, mask, table, num_heads: int, pos_bnd: int,
+               use_rpe: bool = True, body: str | None = None):
+    """K1 on CUDA tensors, with the body ``attn_body`` picks (``body``
+    None) or the CUDA-core body ("cc"; chip_smoke.py times both bodies on
+    the same inputs)."""
+    body = _body(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe,
+                 "window_attention", body)
     BW, T, C = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty((BW, T, C), dtype=q.dtype, device=q.device)
     fn = build.library("window_attn").window_attn_fwd
     fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (q, k, v, xyz, mask, table)),
-             out.data_ptr(), BW, T, C, num_heads, xyz.shape[2], pos_bnd,
-             int(bool(use_rpe)), float((C // num_heads) ** -0.5),
-             build.dtype_code(q), build.stream_ptr(q.device))
-    build.check(err, "window_attn_fwd")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0),
+             q.stride(1), *(t.data_ptr() for t in (xyz, mask, table, out)),
+             BW, T, C, num_heads, xyz.shape[2], pos_bnd, int(bool(use_rpe)),
+             float((C // num_heads) ** -0.5), build.dtype_code(q),
+             int(body == "tc"), build.stream_ptr(q.device))
+    build.check(err, f"window_attn_fwd ({body})")
     kernels.LAUNCHES["window_attn"] += 1
+    if body == "tc":
+        kernels.LAUNCHES["window_attn_tc"] += 1
     return out
 
 
 def window_attention_bwd(q, k, v, xyz, mask, table, g, num_heads: int,
                          pos_bnd: int, use_rpe: bool = True,
-                         need_dtable: bool = True):
+                         need_dtable: bool = True, body: str | None = None):
     """K2 on CUDA tensors, ``window_attention_bwd_reference`` on CPU
-    tensors. g: (BW, T, C) in q's dtype. Returns (dq, dk, dv, dtable)
-    as the reference does; dtable is zeros when ``need_dtable`` is
-    False or the RPE is off."""
+    tensors. g: (BW, T, C) in q's dtype, last dimension contiguous.
+    Returns (dq, dk, dv, dtable) as the reference does; dtable is zeros
+    when ``need_dtable`` is False or the RPE is off. ``body`` as for
+    ``launch_fwd``."""
     if q.device.type == "cpu":
         return window_attention_bwd_reference(q, k, v, xyz, mask, table, g,
                                               num_heads, pos_bnd, use_rpe)
-    _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe,
-           "window_attention_bwd")
+    body = _body(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe,
+                 "window_attention_bwd", body)
     BW, T, C = q.shape
-    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous() \
-            or g.device != q.device:
-        raise ValueError("window_attention_bwd: g must be a contiguous "
-                         f"{q.dtype} {tuple(q.shape)} tensor on {q.device}")
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device \
+            or not _rows_ok(g, body):
+        raise ValueError("window_attention_bwd: g must be a "
+                         f"{q.dtype} {tuple(q.shape)} tensor on {q.device} "
+                         "with the last dimension contiguous")
+    dq, dk, dv = (torch.empty((BW, T, C), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
     dtable = torch.zeros(table.shape, dtype=torch.float32, device=q.device)
     fn = build.library("window_attn").window_attn_bwd
     fn.argtypes = _BWD_ARGTYPES
     fn.restype = ctypes.c_int
-    err = fn(*(t.data_ptr() for t in (q, k, v, xyz, mask, table, g, dq, dk,
-                                      dv, dtable)),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0),
+             q.stride(1), *(t.data_ptr() for t in (xyz, mask, table, g)),
+             g.stride(0), g.stride(1),
+             *(t.data_ptr() for t in (dq, dk, dv, dtable)),
              BW, T, C, num_heads, xyz.shape[2], pos_bnd, int(bool(use_rpe)),
              int(bool(use_rpe and need_dtable)),
              float((C // num_heads) ** -0.5), build.dtype_code(q),
-             build.stream_ptr(q.device))
-    build.check(err, "window_attn_bwd")
+             int(body == "tc"), build.stream_ptr(q.device))
+    build.check(err, f"window_attn_bwd ({body})")
     kernels.LAUNCHES["window_attn_bwd"] += 1
+    if body == "tc":
+        kernels.LAUNCHES["window_attn_bwd_tc"] += 1
     return dq, dk, dv, dtable
 
 
@@ -200,10 +307,11 @@ class WindowAttentionFn(torch.autograd.Function):
 
 def window_attention(q, k, v, xyz, mask, table, num_heads: int,
                      pos_bnd: int, use_rpe: bool = True) -> torch.Tensor:
-    """q, k, v: (BW, T, C) float32/bfloat16, contiguous; xyz: (BW, 3, K)
-    int32 node coords with K = T - G (the G leading relay slots get no
-    bias); mask: (BW, T) int32; table: (3*(2*pos_bnd+1), H) float32.
-    Returns (BW, T, C) in q's dtype; rows with mask == 0 are 0.
-    Differentiable in q, k, v and table."""
+    """q, k, v: (BW, T, C) float32/bfloat16 with the last dimension
+    contiguous and equal strides (e.g. slices of one qkv projection);
+    xyz: (BW, 3, K) int32 node coords with K = T - G (the G leading relay
+    slots get no bias); mask: (BW, T) int32; table: (3*(2*pos_bnd+1), H)
+    float32. Returns a contiguous (BW, T, C) in q's dtype; rows with
+    mask == 0 are 0. Differentiable in q, k, v and table."""
     return WindowAttentionFn.apply(q, k, v, xyz, mask, table, num_heads,
                                    pos_bnd, use_rpe)

@@ -31,8 +31,8 @@ from hotformerloc_torch.utils.profiling import device_us
 # forward bodies also run the dx of K4/K6 (dwconv_fwd_kernel,
 # conv_fwd_kernel), which therefore count under K3/K5 here.
 CLASSES = [
-    ("K1 window_attn_fwd", ("window_attn_fwd_kernel",)),
-    ("K2 window_attn_bwd", ("window_attn_bwd_kernel",)),
+    ("K1 window_attn_fwd", ("window_attn_fwd_",)),
+    ("K2 window_attn_bwd", ("window_attn_bwd_",)),
     ("K3 dwconv_fwd (+ K4 dx)", ("dwconv_fwd_kernel",)),
     ("K4 dwconv dw", ("dwconv_dw_partial_kernel",)),
     ("K5 conv_fwd (+ K6 dx)", ("conv_fwd_kernel",)),
