@@ -65,9 +65,9 @@
 //   trial builds timed on the H100 on the train path's windows (whose
 //   nodes spread over many coordinates per axis at the OctFormer depth,
 //   so runs are short), merging before the add beat adding per run and
-//   lane, and a plain add by the tail lanes was no faster than the
-//   atomic: the walk's dependent shared loads and shuffles, not the adds,
-//   are what the histogram costs.
+//   lane; a plain add by the tail lanes instead of the atomic, and
+//   splitting each axis's runs over four warps that carry all the round's
+//   heads, were no faster.
 //
 // CUDA-core bodies (*_cc_kernel): one block per (window, head), scalar
 // fp32 products over shared memory.
