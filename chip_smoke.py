@@ -899,7 +899,7 @@ def main():
         by = {r["bound_by_bf16"] for r in rows}
         if kname.startswith("window_attn"):
             # the tensor-core bodies' launches; the CUDA-core body on the
-            # same inputs (the PR 1 / PR 2 kernels); K2 without dtable
+            # same inputs (the bodies fp32 still runs); K2 without dtable
             tc = kname + "_tc"
             extra = {"launches_tc": (train_launches if is_bwd
                                      else launches)[tc],
