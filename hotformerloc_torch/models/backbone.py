@@ -47,9 +47,11 @@ class PatchEmbed(nn.Module):
     def forward(self, x, plan: OctreePlan):
         d = plan.octree.depth
         for i in range(self.num_down):
-            x = getattr(self, f"conv{i}")(x, plan.level_ctx(d - i).neigh)
+            ctx = plan.level_ctx(d - i)
+            x = getattr(self, f"conv{i}")(x, ctx.neigh, ctx.taps)
             x = getattr(self, f"down{i}")(x, plan.children(d - i))
-        return self.proj(x, plan.level_ctx(d - self.num_down).neigh)
+        ctx = plan.level_ctx(d - self.num_down)
+        return self.proj(x, ctx.neigh, ctx.taps)
 
 
 class OctFormerStage(nn.Module):

@@ -31,11 +31,13 @@ def input_features(octree: BatchedOctree, feature_str: str = "P"):
 
 
 def build_model_plan(cfg: ModelConfig, points: torch.Tensor,
-                     pmask: torch.Tensor) -> OctreePlan:
-    """The octree and every gather table of one batch, for ``plan=``."""
+                     pmask: torch.Tensor, tap_lists: bool = True
+                     ) -> OctreePlan:
+    """The octree and every gather table of one batch, for ``plan=``
+    (``tap_lists`` as for ``build_plan``)."""
     octree = build_batched_octree(points, pmask, cfg.octree_depth,
                                   cfg.min_depth, cfg.resolve_capacities())
-    return build_plan(octree, cfg.dense_depths())
+    return build_plan(octree, cfg.dense_depths(), tap_lists)
 
 
 class HOTFormerLoc(nn.Module):
@@ -101,8 +103,9 @@ class HOTFormerLoc(nn.Module):
         ignored in eval mode. ``dtype`` overrides the compute dtype."""
         c = self.cfg
         dtype = dtype or self.dtype or self.pooling.mixer.row_proj.weight.dtype
-        if plan is None:
-            plan = build_model_plan(c, points, pmask)
+        if plan is None:         # tap lists only for a backward to read
+            plan = build_model_plan(c, points, pmask,
+                                    tap_lists=torch.is_grad_enabled())
         octree = plan.octree
         sites = self.drop_path_sites() if self.training else []
         if sites:

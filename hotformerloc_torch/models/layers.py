@@ -162,14 +162,14 @@ class _KernelRouted(nn.Module):
     weight gradients come back fp32)."""
     use_kernels = True
 
-    def conv(self, x, neigh, w, b):
+    def conv(self, x, neigh, w, b, taps=None):
         if self.use_kernels:
-            return kconv.octree_conv(x, neigh, w, b)
+            return kconv.octree_conv(x, neigh, w, b, taps)
         return plain.octree_conv(x, neigh, cast(w, x), cast(b, x))
 
-    def dwconv(self, x, neigh, w):
+    def dwconv(self, x, neigh, w, taps=None):
         if self.use_kernels:
-            return kconv.octree_dwconv(x, neigh, w)
+            return kconv.octree_dwconv(x, neigh, w, taps)
         return plain.octree_dwconv(x, neigh, cast(w, x))
 
 
@@ -183,8 +183,9 @@ class OctreeConvNormRelu(_KernelRouted):
         self.bias = param((cout,), "const", 0.0, device=device)
         self.norm = layer_norm(cout, device=device)
 
-    def forward(self, x, neigh):
-        return F.relu(self.norm(self.conv(x, neigh, self.kernel, self.bias)))
+    def forward(self, x, neigh, taps=None):
+        return F.relu(self.norm(self.conv(x, neigh, self.kernel, self.bias,
+                                          taps)))
 
 
 class Downsample(nn.Module):
@@ -226,7 +227,7 @@ class CPE(_KernelRouted):
             y = plain.octree_dwconv_dense(x, ctx.xyz, ctx.node_valid, w,
                                           ctx.depth, ctx.dense_idx)
         else:
-            y = self.dwconv(x, ctx.neigh, w)
+            y = self.dwconv(x, ctx.neigh, w, ctx.taps)
         return self.norm(y)
 
 

@@ -11,9 +11,10 @@ kernel, so gradients flow through the kernels.
 ``LAUNCHES`` counts wrapper calls that launched on the card, per kernel
 name, so a run can show that it went through the kernels. A backward
 entry point counts once under its own name, whichever kernel bodies it
-runs (dx of the convs reuses the forward bodies). ``window_attn`` and
-``window_attn_bwd`` count every launch of K1 and K2; ``window_attn_tc``
-and ``window_attn_bwd_tc`` count those that ran the tensor-core bodies.
+runs (dx of the convs reuses the forward bodies). ``window_attn``,
+``window_attn_bwd``, ``octree_conv`` and ``octree_conv_bwd`` count every
+launch of K1, K2, K5 and K6; the same names with ``_tc`` count those
+that ran the tensor-core bodies.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
             "window_attn_bwd": 0, "octree_dwconv_bwd": 0,
             "octree_conv_bwd": 0,
             "window_attn_tc": 0, "window_attn_bwd_tc": 0,
+            "octree_conv_tc": 0, "octree_conv_bwd_tc": 0,
             # the probe tools' kernels (gather.py, constructs.py)
             "take_rows": 0, "dwconv_resident": 0,
             **{f"construct_{n}": 0 for n in (

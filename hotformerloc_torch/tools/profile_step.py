@@ -29,15 +29,16 @@ from hotformerloc_torch.utils.profiling import device_us
 
 # (class, substrings of the CUDA kernel name), first match wins. The
 # forward bodies also run the dx of K4/K6 (dwconv_fwd_kernel,
-# conv_fwd_kernel), which therefore count under K3/K5 here.
+# conv_fwd_tc_kernel / conv_fwd_kernel), which therefore count under K3/K5
+# here.
 CLASSES = [
     ("K1 window_attn_fwd", ("window_attn_fwd_",)),
     ("K2 window_attn_bwd", ("window_attn_bwd_",)),
     ("K3 dwconv_fwd (+ K4 dx)", ("dwconv_fwd_kernel",)),
-    ("K4 dwconv dw", ("dwconv_dw_partial_kernel",)),
-    ("K5 conv_fwd (+ K6 dx)", ("conv_fwd_kernel",)),
-    ("K6 conv dw", ("conv_dw_partial_kernel",)),
-    ("K4/K6 partial sums", ("sum_parts_kernel",)),
+    ("K4 dwconv dw", ("dwconv_dw_taps_kernel",)),
+    ("K5 conv_fwd (+ K6 dx)", ("conv_fwd_tc_kernel", "conv_fwd_kernel")),
+    ("K6 conv dw", ("conv_dw_tc_kernel", "conv_dw_partial_kernel")),
+    ("K4/K6 partial sums", ("sum_segments_kernel", "sum_parts_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
     ("norm", ("layer_norm", "layernorm")),
     ("softmax", ("softmax",)),
