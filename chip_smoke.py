@@ -23,17 +23,24 @@ script exits non-zero without the final line:
    and K5 run the body attn_body / conv_body picks (bf16: the tensor-core
    body, but for K5's C = 3 stem conv); where that is the tensor-core
    body, the CUDA-core body is checked and timed on the same inputs too
-   (cc_ms). K5 also gives its device time under torch.profiler
+   (cc_ms). K3 and K5 also give their device time under torch.profiler
    (device_ms, cc_device_ms: a call's CUDA-event time includes the
-   wrapper's host work), and is checked and timed (CUDA events) again on
-   a surface-like batch (surf_*: 4096 points on 3-4 random planes per
-   cloud, no octree overflow), with valid taps per node for both.
+   wrapper's host work), and are checked and timed (CUDA events) again
+   on a surface-like batch (surf_*: 4096 points on 3-4 random planes per
+   cloud, no octree overflow), with valid taps per node for both. K3 runs
+   every CPE, the depth-4 one included (the JAX package's dense-grid
+   depth); there its library time is cuDNN's grouped conv3d on the dense
+   16^3 grid of the same inputs (the call the port made before).
+3b. F1: the CUDA-core conv body (the stem's C = 3 -> 32 conv) on 1040
+   clouds of 4096 rows, past the old 65535-tile grid cap, held against
+   the plain version on a fixed sample of rows at fp32 and bf16.
 4. slice: oxford_config with seeded random weights embeds 32 synthetic
    clouds (16 uniform clouds of 4096 points, each twice with sigma 0.01
    noise) through make_embed_fn in bf16 and fp32. The launch counters,
    zeroed just before the bf16 run and read just after, must show K1=34,
-   K3=24, K5=3, all 34 K1 launches and K5's 2 with C, O multiples of 16
-   on the tensor-core bodies (none at fp32); descriptors must be finite and unit-norm with no octree
+   K3=34, K5=3, all 34 K1 launches and K5's 2 with C, O multiples of 16
+   on the tensor-core bodies (none at fp32), and the run no call of
+   F.conv3d; descriptors must be finite and unit-norm with no octree
    overflow; the fp32 kernel descriptors must match the plain path on
    the same card (cos >= 0.9999, max abs <= 1e-4). Retrieval recall@1 of
    the noisy copies against the originals is printed for information
@@ -58,11 +65,11 @@ script exits non-zero without the final line:
    and the stage-3 embeddings stage 1's (max abs <= 1e-6). In bf16 on
    fp32 parameters, the launch counters of one step (zeroed just before,
    read just after) must equal the counts the shape table gives (K1 272,
-   K2 136, K3 192, K4 96, K5 24, K6 12; every K1 and K2 launch on the
-   tensor-core bodies, and K5's 16 and K6's 8 that conv_body gives them);
-   loss, stats and gradients must be finite; then 3
-   warm-up and 10 timed steps give step ms, submaps/s, octree + plan ms
-   per step and peak memory.
+   K2 136, K3 272, K4 136, K5 24, K6 12; every K1 and K2 launch on the
+   tensor-core bodies, and K5's 16 and K6's 8 that conv_body gives them),
+   with no call of F.conv3d; loss, stats and gradients must be finite;
+   then 3 warm-up and 10 timed steps give step ms, submaps/s, octree +
+   plan ms per step and peak memory.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, with K3 on the same inputs) and mosaic_probe
@@ -80,7 +87,7 @@ script exits non-zero without the final line:
    plus PROBE_REPS per profiled window that device_ms had to take again
    because torch.profiler returned it without device events (counted,
    and printed as retaken_profiler_windows).
-8. device times: K4, K5 and K6 (K5/K6 on both bodies) under
+8. device times: K3, K4, K5 and K6 (K5/K6 on both bodies) under
    torch.profiler at the main path's shapes, taken after every other
    phase (profiled windows before the train phase were followed by
    probe-tool windows without device events).
@@ -200,6 +207,99 @@ def taps_per_node(plan, d):
     return taps, taps / max(1, int(plan.octree.node_valid(d).sum()))
 
 
+def dense_library(plan, d, x, w, out, dt):
+    """K3's library yardstick at a depth the JAX package runs on a dense
+    voxel grid: cuDNN's grouped conv3d (ops/conv.octree_dwconv_dense's
+    one call) on the dense (B, C, D, D, D) grid of the same inputs, timed
+    alone (CUDA events; the gathers in and out of the grid not counted);
+    and the whole dense-grid function's distance from K3's output ``out``
+    (recorded, not asserted: cuDNN is no kernel of the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hotformerloc_torch.ops import conv as plain
+    oc = plan.octree
+    B, N, C = x.shape
+    D = 2 ** d
+    vox = plain.dense_voxel_index(oc.key(d), oc.count(d), d)
+    grid = plain._gather_rows(x, vox).reshape(B, D, D, D, C).permute(
+        0, 4, 1, 2, 3)
+    wk = w.t().reshape(C, 1, 3, 3, 3).to(x.dtype)
+    ms = time_ms(lambda: F.conv3d(grid, wk, padding=1, groups=C))
+    full = plain.octree_dwconv_dense(x, oc.xyz(d), oc.node_valid(d), w, d,
+                                     vox)
+    err = float((full.float() - out.float()).abs().max())
+    del grid, full
+    torch.cuda.empty_cache()
+    return {f"library_ms_{dt}": ms, f"library_err_{dt}": err,
+            "library": f"F.conv3d(groups=C) on the dense {D}^3 grid"}
+
+
+def f1_phase(torch, dev):
+    """The stem's C = 3 -> 32 conv on the CUDA-core body (K5's body for
+    every C = 3 and fp32 call) with more than 65535 x 64 rows: 1040
+    clouds at depth-9 capacity 4096, on a synthetic neighbour table (a
+    third of the taps missing). Held against the plain version on a fixed
+    sample of rows, the last tiles included, at fp32 and bf16."""
+    from hotformerloc_torch.ops import conv as plain
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    B, N, C, O = 1040, 4096, 3, 32
+    R = B * N
+    if (R + 63) // 64 <= 65535:
+        raise AssertionError("F1 case is below the old grid cap")
+    g = torch.Generator(device=dev).manual_seed(5)
+    neigh = torch.randint(-N // 2, N, (B, N, 27), generator=g, device=dev,
+                          dtype=torch.int32).clamp_(min=-1)
+    x32 = torch.randn(B, N, C, generator=g, device=dev)
+    w32 = torch.randn(27, C, O, generator=g, device=dev) * (27 * C) ** -0.5
+    b32 = torch.randn(O, generator=g, device=dev) * 0.1
+    rows = torch.cat([torch.randint(0, R, (4032,), generator=g, device=dev),
+                      torch.arange(R - 64, R, device=dev)])
+    nb = neigh.reshape(R, 27)[rows]
+    base = (rows // N * N).to(torch.int32)[:, None]
+    nb_g = torch.where(nb >= 0, nb + base, nb)[None]      # (1, S, 27)
+    out = {"rows": R, "node_tiles": (R + 63) // 64, "sample_rows":
+           int(rows.numel())}
+    for dt, tdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        x, w, b = x32.to(tdt), w32.to(tdt), b32.to(tdt)
+        y = kconv.launch_conv(x, neigh, w, b, body="cc")
+        torch.cuda.synchronize()
+        got = y.reshape(R, O)[rows]
+        ref = plain.octree_conv(x.reshape(1, R, C), nb_g, w, b)[0]
+        err = float((got.float() - ref.float()).abs().max())
+        scale = max(1.0, float(ref.float().abs().max()))
+        lim = (TOL["fp32"]["octree_conv"] if dt == "fp32"
+               else TOL["bf16_rel"] * scale)
+        if not (err <= lim and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"F1 conv {dt}: max |kernel - plain| = "
+                                 f"{err} > {lim}")
+        out[f"err_{dt}"] = err
+        out[f"ms_{dt}"] = time_ms(
+            lambda: kconv.launch_conv(x, neigh, w, b, body="cc"), reps=3)
+        del y
+    del neigh
+    torch.cuda.empty_cache()
+    return out
+
+
+class CountConv3d:
+    """Counts calls of torch.nn.functional.conv3d inside the block (the
+    dense-grid CPE's only cuDNN call): the main path must make none."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self.F, self.real, self.calls = F, F.conv3d, 0
+
+        def counting(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        F.conv3d = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.F.conv3d = self.real
+
+
 def path_cases(cfg):
     """Every kernel shape of one oxford_config forward, with its launches
     per forward: window_attn (label, depth, C, H, dilation, G, n),
@@ -217,8 +317,7 @@ def path_cases(cfg):
              for j, d in enumerate(cfg.pyramid_depths)]
     dw = [(f"cpe_d{td}", td, octf_c, nb_octf)]
     dw += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
-           for j, d in enumerate(cfg.pyramid_depths)
-           if d > cfg.dense_cpe_max_depth]
+           for j, d in enumerate(cfg.pyramid_depths)]
     chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
     conv = [(f"stem_conv{i}_d{cfg.octree_depth - i}", cfg.octree_depth - i,
              3 if i == 0 else chans[i], chans[i], 1)
@@ -490,17 +589,21 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
     m, step = make(torch.bfloat16, True)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    stats = step(batch, 0)
-    torch.cuda.synchronize()
+    with CountConv3d() as c3:
+        stats = step(batch, 0)
+        torch.cuda.synchronize()
     warm = [(time.perf_counter() - t0) * 1e3]
     launches = dict(kernels.LAUNCHES)
+    if c3.calls:
+        raise AssertionError(f"the bf16 step called F.conv3d {c3.calls} "
+                             "times: a CPE left K3/K4")
     want = {}
     for k, cs in cases.items():
         per_fwd = sum(c[-1] for c in cs)
         want[k] = per_fwd * ACCUM * 2            # stage 1 + stage 3
         want[k + "_bwd"] = per_fwd * ACCUM
-    if want != {"window_attn": 272, "octree_dwconv": 192, "octree_conv": 24,
-                "window_attn_bwd": 136, "octree_dwconv_bwd": 96,
+    if want != {"window_attn": 272, "octree_dwconv": 272, "octree_conv": 24,
+                "window_attn_bwd": 136, "octree_dwconv_bwd": 136,
                 "octree_conv_bwd": 12}:
         raise AssertionError(f"train-path shape table is off: {want}")
     # every bf16 K1 / K2 launch of the step takes the tensor-core bodies,
@@ -725,14 +828,14 @@ def main():
     pmask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
     octree = build_batched_octree(pts, pmask, cfg.octree_depth,
                                   cfg.min_depth, cfg.resolve_capacities())
-    plan = build_plan(octree, cfg.dense_depths())
+    plan = build_plan(octree)
     spts = torch.from_numpy(surface_clouds()).to(dev)
     soctree = build_batched_octree(spts, pmask, cfg.octree_depth,
                                    cfg.min_depth, cfg.resolve_capacities())
     if int(soctree.overflow.sum()) != 0:
         raise AssertionError("surface-like batch overflows the octree: "
                              f"{int(soctree.overflow.sum())}")
-    splan = build_plan(soctree, cfg.dense_depths())
+    splan = build_plan(soctree)
     # the tap lists of every level, built with any device-to-host sync
     # raising, then timed
     torch.cuda.synchronize()
@@ -835,26 +938,39 @@ def main():
         emit({"phase": "kernel", "kernel": "window_attn", **row})
 
     for label, d, C, per_fwd in dw_cases:
-        neigh = plan.neighs[octree.level(d)]
-        B, N, _ = neigh.shape
-        taps = int((neigh >= 0).sum())
-        x32, w32 = rnd(B, N, C), rnd(27, C, scale=(27 * C) ** -0.5)
-        row = {"case": label, "shape": [B, N, C], "valid_taps": taps,
-               "per_forward": per_fwd}
-        for dt, tdt in dtypes.items():
-            x, w = x32.to(tdt), w32.to(tdt)
-            out = kconv.octree_dwconv(x, neigh, w)
-            ref = plain.octree_dwconv(x, neigh, w)
-            row[f"err_{dt}"] = compare(out, ref, "octree_dwconv", dt)
-            row[f"ms_{dt}"] = time_ms(lambda: kconv.octree_dwconv(
-                x, neigh, w))
-            row[f"plain_ms_{dt}"] = time_ms(
-                lambda: plain.octree_dwconv(x, neigh, w))
-            row[f"library_ms_{dt}"] = None
-            nbytes = (2 * B * N * C * x.element_size() + neigh.numel() * 4
-                      + w.numel() * w.element_size())
-            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
-                nbytes, 2 * taps * C, dt)
+        x32 = rnd(BATCH, plan.neighs[octree.level(d)].shape[1], C)
+        w32 = rnd(27, C, scale=(27 * C) ** -0.5)
+        row = {"case": label, "per_forward": per_fwd}
+        # the uniform batch (the main path's), then the surface-like one
+        for tag, pl in (("", plan), ("surf_", splan)):
+            neigh = pl.neighs[pl.octree.level(d)]
+            B, N, _ = neigh.shape
+            taps, per_node = taps_per_node(pl, d)
+            row.update({f"{tag}shape": [B, N, C], f"{tag}valid_taps": taps,
+                        f"{tag}valid_taps_per_node": per_node})
+            for dt, tdt in dtypes.items():
+                x, w = x32.to(tdt), w32.to(tdt)
+                args = (x, neigh, w)
+                out = kconv.octree_dwconv(*args)
+                ref = plain.octree_dwconv(*args)
+                row[f"{tag}err_{dt}"] = compare(out, ref, "octree_dwconv",
+                                                dt)
+                row[f"{tag}ms_{dt}"] = time_ms(
+                    lambda: kconv.octree_dwconv(*args))
+                if dt == "bf16" and not tag:       # device time, taken last
+                    device_jobs.append((row, "device_ms_bf16", (
+                        lambda a=args: kconv.octree_dwconv(*a))))
+                nbytes = (2 * B * N * C * x.element_size()
+                          + neigh.numel() * 4 + w.numel() * w.element_size())
+                row[f"{tag}bound_ms_{dt}"], row[f"{tag}bound_by_{dt}"] = \
+                    bound(nbytes, 2 * taps * C, dt)
+                if not tag:
+                    row[f"plain_ms_{dt}"] = time_ms(
+                        lambda: plain.octree_dwconv(*args))
+                    row[f"library_ms_{dt}"] = None
+                    if d <= cfg.dense_cpe_max_depth:
+                        row.update(dense_library(pl, d, x, w, out, dt))
+                del out, ref
         results["octree_dwconv"].append(row)
         emit({"phase": "kernel", "kernel": "octree_dwconv", **row})
 
@@ -910,6 +1026,11 @@ def main():
     emit({"phase": "kernels_seconds",
           "seconds": round(time.time() - t_phase, 1)})
 
+    # ---- 3b. F1: the CUDA-core conv body past the old grid cap ----------
+    t_phase = time.time()
+    emit({"phase": "f1_large_conv", **f1_phase(torch, dev),
+          "seconds": round(time.time() - t_phase, 1)})
+
     # ---- 4. the slice: embed 32 clouds ---------------------------------
     t_phase = time.time()
     model = HOTFormerLoc(cfg, device="cuda",
@@ -922,12 +1043,16 @@ def main():
     embed_plain = make_embed_fn(plain_model, torch.float32)
 
     kernels.reset_launches()
-    out_bf16 = embed_bf16(pts, pmask)
-    torch.cuda.synchronize()
+    with CountConv3d() as c3:
+        out_bf16 = embed_bf16(pts, pmask)
+        torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    if c3.calls:
+        raise AssertionError(f"the bf16 embed called F.conv3d {c3.calls} "
+                             "times: a CPE left K3")
     want = {k: sum(r["per_forward"] for r in rows)
             for k, rows in results.items()}
-    if want != {"window_attn": 34, "octree_dwconv": 24, "octree_conv": 3}:
+    if want != {"window_attn": 34, "octree_dwconv": 34, "octree_conv": 3}:
         raise AssertionError(f"main-path shape table is off: {want}")
     want = {k: want.get(k, 0) for k in kernels.LAUNCHES}   # no backward
     # every bf16 K1 launch takes the tensor-core body, and every K5 launch
@@ -996,7 +1121,7 @@ def main():
         with torch.inference_mode():
             oc = build_batched_octree(pts, pmask, cfg.octree_depth,
                                       cfg.min_depth, cfg.resolve_capacities())
-            build_plan(oc, cfg.dense_depths(), tap_lists=False)
+            build_plan(oc, tap_lists=False)
         torch.cuda.synchronize()
 
     octree_and_plan()
@@ -1050,7 +1175,8 @@ def main():
           **{k: {r["case"]: {n: r.get(n) for n in ("device_ms_bf16",
                                                    "cc_device_ms_bf16")}
                  for r in rows}
-             for k, rows in (("octree_conv", results["octree_conv"]),
+             for k, rows in (("octree_dwconv", results["octree_dwconv"]),
+                             ("octree_conv", results["octree_conv"]),
                              ("octree_dwconv_bwd", bwd["octree_dwconv_bwd"]),
                              ("octree_conv_bwd", bwd["octree_conv_bwd"]))},
           "seconds": round(time.time() - t_phase, 1)})
@@ -1077,11 +1203,11 @@ def main():
                      "cc_ms": total("cc_ms_bf16")}
             if is_bwd:
                 extra["nodtab_ms"] = total("nodtab_ms_bf16")
-        elif kname in ("octree_conv", "octree_dwconv_bwd",
+        elif kname in ("octree_dwconv", "octree_conv", "octree_dwconv_bwd",
                        "octree_conv_bwd"):
             # K5 / K6: the tensor-core bodies' launches and the CUDA-core
-            # bodies on the same inputs (K4 has one body); device time
-            # under the profiler; the same on the surface-like batch
+            # bodies on the same inputs (K3 and K4 have one body); device
+            # time under the profiler; the same on the surface-like batch
             tc = kname + "_tc"
             src = train_launches if is_bwd else launches
             extra = {"launches_tc": src.get(tc),
@@ -1103,6 +1229,22 @@ def main():
                                                   for r in rows)}
         else:
             extra = {}
+        if kname == "octree_dwconv":
+            # the library call exists at the dense depth only (cuDNN's
+            # grouped conv3d on the 16^3 grid): its time per forward beside
+            # K3's on the same launches
+            lib = [r for r in rows if r.get("library_ms_bf16") is not None]
+            extra.update(
+                library_ms=sum(r["library_ms_bf16"] * r[mult] for r in lib),
+                library_ms_fp32=sum(r["library_ms_fp32"] * r[mult]
+                                    for r in lib),
+                library_cases=[r["case"] for r in lib],
+                library_cases_ms=sum(r["ms_bf16"] * r[mult] for r in lib),
+                library_cases_device_ms=sum(r["device_ms_bf16"] * r[mult]
+                                            for r in lib),
+                library_err_vs_kernel=max(r["library_err_bf16"]
+                                          for r in lib),
+                library_call=lib[0]["library"])
         line.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname],

@@ -9,12 +9,25 @@
 // K3 octree_dwconv_fwd -- depthwise: out[b,n,c] = sum_k w[k,c] x[b,neigh,c]
 //   Replaces hotformerloc_tpu/ops/pallas/band_conv.py:_dw_fwd_kernel with
 //   its escape patch (_esc_dw_rows, _place; entry banded_dwconv). Bound on
-//   the H100: bytes (27 multiply-adds per gathered element). One thread
-//   per (node, 16-byte vector of channels), so the threads of a node read a
-//   gathered row as one coalesced load; the (27, C) weights sit in shared
-//   memory as fp32 (read flipped, w[26 - k], for K4's dx). The TPU
+//   the H100: bytes (27 multiply-adds per gathered element), and in
+//   practice the latency of the gathers: a node of a uniform cloud has ~1
+//   valid tap at the fine depths, ~20 at the coarse dense one. The TPU
 //   kernel's halo band and escape list only existed because a TPU kernel
 //   cannot gather rows from HBM cheaply; a direct gather needs neither.
+//   Hopper's TMA has no row-gather mode either, so rows come by 16-byte
+//   loads. dwconv_fwd_kernel: a persistent grid sized to the resident
+//   blocks walks tiles of 64 Morton-ordered nodes. A tile's neighbour
+//   rows (64 x 108 contiguous bytes) come into shared memory by cp.async,
+//   double-buffered: the next tile's rows load while this one computes,
+//   so no index load sits on a node's critical path. A group of S lanes
+//   (S = the row's 16-byte vectors, at most 32) owns one node at a time:
+//   its lanes read the node's 27 indices from shared memory, OR their
+//   valid bits together by shuffles, then walk only the valid taps,
+//   issuing four independent row gathers before the multiply-adds that
+//   use them. The groups of a block take neighbouring nodes in turn, so
+//   their rows overlap in L1 at the dense depth. Weights sit in shared
+//   memory in the activations' dtype (read flipped, w[26 - k], for K4's
+//   dx). fp32 sums in tap order, one rounding; no atomics: deterministic.
 //
 // K5 octree_conv_fwd -- full (gather-GEMM), and K6's dx by the flip
 //   identity: out[b,n,o] = sum_{k,c} W_k[c,o] x[b, neigh[b,n,k], c] + bias[o]
@@ -165,40 +178,138 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---- K3 (and K4's dx) -----------------------------------------------------
 
+constexpr int kDwFwdThreads = 256;
+constexpr int kDwFwdTile = 64;      // nodes per index tile (at least)
+constexpr int kDwFwdUnroll = 4;     // row gathers issued before their use
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// VEC elements of shared (or global) memory -> fp32 registers, by a
+// generic load.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void load_vec_plain(const T* p, float* r) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) r[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) r[i] = to_f(p[i]);
+  }
+}
+
+// Bytes of the weights in shared memory, rounded up to 16.
+__host__ __device__ __forceinline__ int dw_wbytes(int C, int esize) {
+  return (kTaps * C * esize + 15) & ~15;
+}
+
+// Shared memory: the (27, C) weights in T (when wsmem; else they are
+// read from global memory, which only a C of thousands needs), then two
+// index tiles of tn rows of 27 int32. S lanes per node (a power of two,
+// 32 at most, S divides 256), tn = max(64, 256 / S) nodes per tile, so
+// every group has tn * S / 256 nodes per tile. aligned: neigh is 16-byte
+// aligned (else the index rows come by 4-byte copies).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kDwFwdThreads)
 dwconv_fwd_kernel(const T* __restrict__ x, const int* __restrict__ neigh,
                   const T* __restrict__ w, T* __restrict__ out, int N, int C,
-                  long long rows, int flip) {
-  extern __shared__ float4 wsm4[];
-  float* wsm = reinterpret_cast<float*>(wsm4);
-  for (int i = threadIdx.x; i < kTaps * C; i += blockDim.x) {
-    const int k = i / C;
-    wsm[i] = to_f(w[flip ? i + (kTaps - 1 - 2 * k) * C : i]);
-  }
-  __syncthreads();
-  const int CV = C / VEC;
-  const long long total = rows * CV;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long r = idx / CV;
-    const int c0 = (int)(idx - r * CV) * VEC;
-    const long long sample_base = (r / N) * N;
-    const int* nr = neigh + r * kTaps;
-    float acc[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-    for (int k = 0; k < kTaps; ++k) {
-      const int j = __ldg(nr + k);
-      if (j < 0) continue;
-      float xv[VEC];
-      load_vec<T, VEC>(x + (sample_base + j) * C + c0, xv);
-      const float* wk = wsm + k * C + c0;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wk[i], xv[i], acc[i]);
+                  int rows, int S, int tn, int flip, int aligned,
+                  int wsmem) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  T* wsm = reinterpret_cast<T*>(dw_smem);
+  int* isn = reinterpret_cast<int*>(
+      dw_smem + (wsmem ? dw_wbytes(C, sizeof(T)) : 0));
+  const int tid = threadIdx.x;
+  const int tiles = (rows + tn - 1) / tn;
+  const long long nwords = (long long)rows * kTaps;
+
+  // index rows of tile t into buffer buf (one cp.async group per call)
+  auto stage = [&](int t, int buf) {
+    if (t < tiles) {
+      int* dst = isn + buf * tn * kTaps;
+      const long long w0 = (long long)t * tn * kTaps;
+      const int nw = (int)min((long long)tn * kTaps, nwords - w0);
+      const int n16 = aligned ? nw / 4 : 0;
+      for (int i = tid; i < n16; i += kDwFwdThreads)
+        cp_async16(dst + 4 * i, neigh + w0 + 4 * i, true);
+      for (int i = 4 * n16 + tid; i < nw; i += kDwFwdThreads)
+        cp_async4(dst + i, neigh + w0 + i);
     }
-    store_vec<T, VEC>(out + r * C + c0, acc);
+    cp_async_commit();
+  };
+
+  stage(blockIdx.x, 0);
+  if (wsmem)
+    for (int i = tid; i < kTaps * C; i += kDwFwdThreads) {
+      const int k = i / C;
+      wsm[i] = w[flip ? i + (kTaps - 1 - 2 * k) * C : i];
+    }
+  const T* wb = wsmem ? wsm : w;
+  const int wflip = flip && !wsmem;
+  const int CV = C / VEC;
+  const int groups = kDwFwdThreads / S;
+  const int g = tid / S, lig = tid % S;
+  for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+    const int buf = it & 1;
+    stage(t + gridDim.x, buf ^ 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int* tile = isn + buf * tn * kTaps;
+    const int r0 = t * tn;
+    // every lane runs the same number of node slots, so the shuffles
+    // below see the whole warp
+    for (int n = g; n < tn; n += groups) {
+      const int r = r0 + n;
+      const bool live = r < rows;
+      const int* row = tile + n * kTaps;
+      unsigned bits = 0u;
+      if (live)
+        for (int k = lig; k < kTaps; k += S)
+          if (row[k] >= 0) bits |= 1u << k;
+      for (int o = 1; o < S; o <<= 1)
+        bits |= __shfl_xor_sync(0xffffffffu, bits, o);
+      if (!live) continue;
+      const T* xs = x + (long long)(r / N) * N * C;
+      for (int v = lig; v < CV; v += S) {
+        const int c0 = v * VEC;
+        float acc[VEC];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+        unsigned m = bits;
+        while (m) {
+          int kk[kDwFwdUnroll];
+          float xv[kDwFwdUnroll][VEC];
+#pragma unroll
+          for (int u = 0; u < kDwFwdUnroll; ++u) {
+            kk[u] = m ? __ffs(m) - 1 : -1;
+            m &= m - 1;
+          }
+#pragma unroll
+          for (int u = 0; u < kDwFwdUnroll; ++u)
+            if (kk[u] >= 0)
+              load_vec<T, VEC>(xs + (long long)row[kk[u]] * C + c0, xv[u]);
+#pragma unroll
+          for (int u = 0; u < kDwFwdUnroll; ++u)
+            if (kk[u] >= 0) {
+              float wv[VEC];
+              const int kw = wflip ? kTaps - 1 - kk[u] : kk[u];
+              load_vec_plain<T, VEC>(wb + kw * C + c0, wv);
+#pragma unroll
+              for (int i = 0; i < VEC; ++i)
+                acc[i] = fmaf(wv[i], xv[u][i], acc[i]);
+            }
+        }
+        store_vec<T, VEC>(out + (long long)r * C + c0, acc);
+      }
+    }
+    __syncthreads();
   }
+  cp_async_wait<0>();
 }
 
 // ---- K5 / K6 dx, CUDA-core body ------------------------------------------
@@ -228,8 +339,8 @@ conv_fwd_kernel(const T* __restrict__ x, const int* __restrict__ neigh,
   const int tid = threadIdx.x;
   const int tx = tid & 15;         // output group: outputs tx*4 .. tx*4+3
   const int ty = tid >> 4;         // node group: nodes ty*4 .. ty*4+3
-  const long long r0 = (long long)blockIdx.y * kTN;
-  const int o0 = blockIdx.x * kTO;
+  const long long r0 = (long long)blockIdx.x * kTN;
+  const int o0 = blockIdx.y * kTO;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -812,33 +923,68 @@ unsigned grid_for(long long n, int sms) {
   return (unsigned)(blocks < 1 ? 1 : blocks);
 }
 
+// K3's body: S lanes per node, the row's 16-byte vectors (or elements, on
+// the scalar path) rounded up to a power of two, at most 32; a persistent
+// grid of the blocks that fit on the card at once, at most one per tile.
 template <typename T, int VEC>
 cudaError_t launch_dw(const void* x, const int* neigh, const void* w,
                       void* out, int B, int N, int C, int flip, int sms,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kTaps * C;
+  const long long rows = (long long)B * N;
+  if (rows < 1 || C < 1) return cudaSuccess;
+  int S = 1;
+  while (S < 32 && S < C / VEC) S <<= 1;
+  const int tn = kDwFwdTile > kDwFwdThreads / S ? kDwFwdTile
+                                                : kDwFwdThreads / S;
+  const size_t tiles_smem = 2 * sizeof(int) * (size_t)tn * kTaps;
+  const int wsmem = dw_wbytes(C, sizeof(T)) + tiles_smem <= 227 * 1024;
+  const size_t smem =
+      tiles_smem + (wsmem ? (size_t)dw_wbytes(C, sizeof(T)) : 0);
+  cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dwconv_fwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(dwconv_fwd_kernel<T, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const long long rows = (long long)B * N;
-  dwconv_fwd_kernel<T, VEC><<<grid_for(rows * (C / VEC), sms), 256, smem,
+  // resident blocks per SM, asked once per instantiation and shared
+  // memory size (the model's calls take a handful of sizes)
+  static size_t cached_smem[8];
+  static int cached_per_sm[8];
+  int per_sm = 0;
+  for (int i = 0; i < 8 && cached_per_sm[i]; ++i)
+    if (cached_smem[i] == smem) per_sm = cached_per_sm[i];
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dwconv_fwd_kernel<T, VEC>, kDwFwdThreads, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    for (int i = 0; i < 8; ++i)
+      if (!cached_per_sm[i]) {
+        cached_smem[i] = smem;
+        cached_per_sm[i] = per_sm;
+        break;
+      }
+  }
+  const long long tiles = (rows + tn - 1) / tn;
+  const long long blocks = tiles < (long long)sms * per_sm
+                               ? tiles : (long long)sms * per_sm;
+  const int aligned = (reinterpret_cast<uintptr_t>(neigh) & 15) == 0;
+  dwconv_fwd_kernel<T, VEC><<<(unsigned)blocks, kDwFwdThreads, smem,
                               stream>>>(
       static_cast<const T*>(x), neigh, static_cast<const T*>(w),
-      static_cast<T*>(out), N, C, rows, flip);
+      static_cast<T*>(out), N, C, (int)rows, S, tn, flip, aligned, wsmem);
   return cudaGetLastError();
 }
 
+// The node tile is grid.x (up to 2^31 - 1 tiles), the output tile grid.y.
 template <typename T>
 cudaError_t launch_conv(const void* x, const int* neigh, const void* w,
                         const void* bias, void* out, int B, int N, int C,
                         int O, int flip_t, cudaStream_t stream) {
   const long long rows = (long long)B * N;
-  const long long ytiles = (rows + kTN - 1) / kTN;
-  if (ytiles > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((O + kTO - 1) / kTO, (unsigned)ytiles);
+  const long long tiles = (rows + kTN - 1) / kTN;
+  const dim3 grid((unsigned)tiles, (O + kTO - 1) / kTO);
   conv_fwd_kernel<T><<<grid, 256, 0, stream>>>(
       static_cast<const T*>(x), neigh, static_cast<const T*>(w),
       static_cast<const T*>(bias), static_cast<T*>(out), N, C, O, rows,

@@ -67,8 +67,7 @@ class OctFormerStage(nn.Module):
                 dim, num_heads, cfg.patch_size,
                 1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
                 not cfg.disable_rpe, cfg.layer_scale,
-                cpe_dense=depth <= cfg.dense_cpe_max_depth, drop_path=dp,
-                device=device))
+                drop_path=dp, device=device))
 
     def forward(self, x, ctx):
         for i in range(self.num_blocks):
@@ -98,7 +97,6 @@ class HOTFormerIteration(nn.Module):
             self.add_module(f"hosa{j}", HOTFormerBlock(
                 channels[j], num_heads[j], cfg.patch_size, cfg.mlp_ratio,
                 not cfg.disable_rpe, cfg.layer_scale,
-                cpe_dense=depths[j] <= cfg.dense_cpe_max_depth,
                 drop_path=drop_path, device=device))
             if self.use_proj:
                 self.add_module(f"up_proj{j}", linear(

@@ -24,12 +24,12 @@ class OctFormerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, patch_size: int,
                  dilation: int = 1, mlp_ratio: float = 4.0,
                  use_rpe: bool = True, layer_scale: Optional[float] = None,
-                 cpe_dense: bool = False, drop_path: float = 0.0,
+                 drop_path: float = 0.0,
                  device=None):
         super().__init__()
         self.patch_size, self.dilation = patch_size, dilation
         self.use_rpe = use_rpe
-        self.cpe = CPE(dim, cpe_dense, device=device)
+        self.cpe = CPE(dim, device=device)
         self.norm1 = layer_norm(dim, device=device)
         self.attn = WindowAttention(dim, num_heads, patch_size, dilation, 0,
                                     use_rpe, device=device)
@@ -60,12 +60,12 @@ class HOTFormerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, patch_size: int,
                  mlp_ratio: float = 4.0, use_rpe: bool = True,
                  layer_scale: Optional[float] = None,
-                 cpe_dense: bool = False, drop_path: float = 0.0,
+                 drop_path: float = 0.0,
                  device=None):
         super().__init__()
         self.patch_size = patch_size
         self.use_rpe = use_rpe
-        self.cpe = CPE(dim, cpe_dense, device=device)
+        self.cpe = CPE(dim, device=device)
         self.norm1 = layer_norm(dim, device=device)
         self.attn = WindowAttention(dim, num_heads, patch_size, 1, 1,
                                     use_rpe, device=device)

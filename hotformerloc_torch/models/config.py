@@ -66,8 +66,12 @@ class ModelConfig:
     input_features: str = "P"
     # execution (TPU-only switches: kept so configs read the same)
     use_pallas_attn: bool = True
-    # Depths at or below this run the CPE depthwise conv on a dense voxel
-    # grid (V = 8^d) instead of 27-tap row gathers; numerically equal.
+    # The JAX package runs the CPE depthwise conv at depths at or below
+    # this on a dense voxel grid (V = 8^d) instead of 27-tap row gathers,
+    # which was faster on the TPU. The port computes those CPEs by the
+    # gather too (K3/K4): the function is equal (tests/test_ops.py
+    # TestDenseDwconv), so the field only keeps configs and converted
+    # weights in step with the JAX package.
     dense_cpe_max_depth: int = 4
     use_band_conv: bool = True
     band_tile: int = 128
@@ -161,7 +165,8 @@ class ModelConfig:
         return len(pyr) > 1 and not self.disable_rt
 
     def dense_depths(self) -> Tuple[int, ...]:
-        """Depths whose CPE runs the dense voxel-grid path."""
+        """Depths whose CPE the JAX package runs on the dense voxel grid
+        (the port runs them by the gather)."""
         return tuple(d for d in range(self.min_depth,
                                       self.transformer_depth + 1)
                      if d <= self.dense_cpe_max_depth)

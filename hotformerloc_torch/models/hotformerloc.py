@@ -34,10 +34,12 @@ def build_model_plan(cfg: ModelConfig, points: torch.Tensor,
                      pmask: torch.Tensor, tap_lists: bool = True
                      ) -> OctreePlan:
     """The octree and every gather table of one batch, for ``plan=``
-    (``tap_lists`` as for ``build_plan``)."""
+    (``tap_lists`` as for ``build_plan``). Every CPE runs the gather
+    (K3/K4), so no level gets a dense voxel map and, with ``tap_lists``,
+    every level gets tap lists."""
     octree = build_batched_octree(points, pmask, cfg.octree_depth,
                                   cfg.min_depth, cfg.resolve_capacities())
-    return build_plan(octree, cfg.dense_depths(), tap_lists)
+    return build_plan(octree, tap_lists=tap_lists)
 
 
 class HOTFormerLoc(nn.Module):

@@ -212,23 +212,19 @@ class OctreeDownConvNormRelu(Downsample):
 
 class CPE(_KernelRouted):
     """Conditional positional encoding: depthwise 27-tap octree conv +
-    LayerNorm. ``dense_grid`` levels use the dense voxel-grid conv
-    (plain); the others go through the K3 kernel when kernels are on."""
+    LayerNorm, through the K3 kernel when kernels are on, at every depth.
+    The JAX package runs the CPE at depths <= ``dense_cpe_max_depth`` on
+    a dense voxel grid instead; the function is the same
+    (tests/test_torch_cpe.py)."""
 
-    def __init__(self, dim: int, dense_grid: bool = False, device=None):
+    def __init__(self, dim: int, device=None):
         super().__init__()
-        self.dense_grid = dense_grid
         self.dw_kernel = param((27, dim, 1), "fan_in", device=device)
         self.norm = layer_norm(dim, device=device)
 
     def forward(self, x, ctx):
-        w = self.dw_kernel[..., 0]
-        if self.dense_grid:
-            y = plain.octree_dwconv_dense(x, ctx.xyz, ctx.node_valid, w,
-                                          ctx.depth, ctx.dense_idx)
-        else:
-            y = self.dwconv(x, ctx.neigh, w, ctx.taps)
-        return self.norm(y)
+        return self.norm(self.dwconv(x, ctx.neigh, self.dw_kernel[..., 0],
+                                     ctx.taps))
 
 
 class ADaPE(nn.Module):

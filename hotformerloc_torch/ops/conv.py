@@ -3,9 +3,12 @@
 Counterparts of hotformerloc_tpu/ops/conv.py. ``octree_conv`` and
 ``octree_dwconv`` with their explicit gradients ``octree_conv_bwd`` and
 ``octree_dwconv_bwd`` are the plain versions of the CUDA kernels in
-ops/kernels/octree_conv.py; the down-conv and the dense-grid depthwise
-conv stay plain tensor code differentiated by autograd, as XLA computed
-them in the JAX package.
+ops/kernels/octree_conv.py; the down-conv stays plain tensor code
+differentiated by autograd, as XLA computed it in the JAX package.
+``octree_dwconv_dense`` is the counterpart of the JAX package's
+dense-grid CPE conv; the model does not call it (every CPE runs
+``octree_dwconv``, the same function), and chip_smoke.py times its cuDNN
+conv3d as K3's library yardstick.
 """
 from __future__ import annotations
 
@@ -88,7 +91,7 @@ def octree_down_conv(x: torch.Tensor, children: torch.Tensor,
     return octree_conv(x, children, w, b)
 
 
-# -- dense-grid depthwise conv (coarse depths) ------------------------------
+# -- dense-grid depthwise conv (the JAX package's coarse-depth CPE) --------
 
 
 @lru_cache(maxsize=None)

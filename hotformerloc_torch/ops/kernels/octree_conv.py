@@ -157,7 +157,7 @@ def _dw_fwd(x, neigh, w):
     out = torch.empty_like(x)
     err = _fn("octree_dwconv_fwd")(
         x.data_ptr(), neigh.data_ptr(), w.data_ptr(), out.data_ptr(), B, N,
-        C, code, _vec(x), _sms(x.device), build.stream_ptr(x.device))
+        C, code, _vec(x, w), _sms(x.device), build.stream_ptr(x.device))
     build.check(err, "octree_dwconv_fwd")
     kernels.LAUNCHES["octree_dwconv"] += 1
     return out
@@ -189,7 +189,7 @@ def octree_dwconv_bwd(x, neigh, w, dy, need_dx: bool = True,
         x.data_ptr(), neigh.data_ptr(), w.data_ptr(), dy.data_ptr(),
         None if dx is None else dx.data_ptr(), tl.dst.data_ptr(),
         tl.src.data_ptr(), tl.count.data_ptr(), partial.data_ptr(),
-        dw.data_ptr(), B, N, C, workers, code, _vec(x, dy), sms,
+        dw.data_ptr(), B, N, C, workers, code, _vec(x, dy, w), sms,
         build.stream_ptr(x.device))
     build.check(err, "octree_dwconv_bwd")
     kernels.LAUNCHES["octree_dwconv_bwd"] += 1

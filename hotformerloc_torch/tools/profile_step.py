@@ -1,17 +1,23 @@
-"""Where the time of the Oxford train step goes, on the card.
+"""Where the time of the Oxford train step, or of a served batch, goes,
+on the card.
 
-    python -m hotformerloc_torch.tools.profile_step [--steps 2] [--out DIR]
+    python -m hotformerloc_torch.tools.profile_step [--mode train|embed]
+        [--steps 2] [--out DIR]
 
-Builds the step chip_smoke.py times (oxford_config, batch 32 as 4
-microbatches of 8, bf16 compute on fp32 parameters, Adam, DropPath 0.5,
-seeded random weights and bench.py's synthetic clouds), warms it up, and
-traces ``--steps`` steps with torch.profiler. Prints one JSON line: the
-host-clock step time, the device busy time (sum of kernel durations; one
-stream, so kernels do not overlap) and idle share, and the device time
-by kernel class (the six hand-written kernels by name, then cuBLAS
-GEMMs, elementwise, reductions, gathers/scatters, copies, norms, the
-rest), with the 25 longest kernels. ``--out`` also writes the
-key_averages table there. Exits 1 without a CUDA device.
+``--mode train`` (the default) builds the step chip_smoke.py times
+(oxford_config, batch 32 as 4 microbatches of 8, bf16 compute on fp32
+parameters, Adam, DropPath 0.5, seeded random weights and bench.py's
+synthetic clouds); ``--mode embed`` the serving call chip_smoke.py
+times (``make_embed_fn`` in bf16, batch 32 of the same clouds, the same
+weights). It warms the call up and traces ``--steps`` calls with
+torch.profiler. Prints one JSON line: the host-clock time per call, the
+device busy time (sum of kernel durations; one stream, so kernels do
+not overlap) and idle share, and the device time per call by kernel
+class (the six hand-written kernels by name, then cuDNN convolutions,
+cuBLAS GEMMs, elementwise, reductions, gathers/scatters, copies, norms,
+the rest), with the 25 longest kernels. ``--out`` also writes the
+key_averages table there (profile_<mode>.txt). Exits 1 without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -39,6 +45,10 @@ CLASSES = [
     ("K5 conv_fwd (+ K6 dx)", ("conv_fwd_tc_kernel", "conv_fwd_kernel")),
     ("K6 conv dw", ("conv_dw_tc_kernel", "conv_dw_partial_kernel")),
     ("K4/K6 partial sums", ("sum_segments_kernel", "sum_parts_kernel")),
+    # cuDNN's convolution kernels (a dense-grid CPE's conv3d; the path
+    # should show none)
+    ("conv3d (cuDNN)", ("convolve", "conv3d", "cudnn", "fprop", "dgrad",
+                        "wgrad")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "sm80_")),
     ("norm", ("layer_norm", "layernorm")),
     ("softmax", ("softmax",)),
@@ -59,6 +69,7 @@ def classify(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--mode", choices=("train", "embed"), default="train")
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -67,6 +78,7 @@ def main(argv=None) -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from hotformerloc_torch.evaluation.embed import make_embed_fn
     from hotformerloc_torch.losses.losses import make_loss
     from hotformerloc_torch.models.config import oxford_config
     from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
@@ -87,22 +99,35 @@ def main(argv=None) -> int:
              "positives_mask": torch.from_numpy(
                  same & ~np.eye(B, dtype=bool)).to(dev),
              "negatives_mask": torch.from_numpy(~same).to(dev)}
-    model = HOTFormerLoc(cfg, device=dev, dtype=torch.bfloat16,
-                         generator=torch.Generator().manual_seed(0))
-    opt = make_optimizer(model.parameters(), "adam",
-                         lr_schedule(5e-4, steps_per_epoch=100, epochs=150,
-                                     warmup_epochs=5, milestones=[100]),
-                         weight_decay=1e-4)
-    step = make_train_step(model, opt, make_loss(
-        "truncatedsmoothap", positives_per_query=4), StepConfig(accum_steps=4))
+    if args.mode == "embed":
+        model = HOTFormerLoc(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+        embed = make_embed_fn(model, torch.bfloat16)
+
+        def call(i):
+            embed(batch["points"], batch["pmask"])
+    else:
+        model = HOTFormerLoc(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+        opt = make_optimizer(model.parameters(), "adam",
+                             lr_schedule(5e-4, steps_per_epoch=100,
+                                         epochs=150, warmup_epochs=5,
+                                         milestones=[100]),
+                             weight_decay=1e-4)
+        step = make_train_step(model, opt, make_loss(
+            "truncatedsmoothap", positives_per_query=4),
+            StepConfig(accum_steps=4))
+
+        def call(i):
+            step(batch, i)
     for i in range(3):
-        step(batch, i)
+        call(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(args.steps):
-            step(batch, 3 + i)
+            call(3 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = [e for e in prof.key_averages()
@@ -119,7 +144,7 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip()
     report = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "batch": B,
+        "mode": args.mode, "batch": B,
         "steps_traced": args.steps, "step_ms_host_traced": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -132,7 +157,8 @@ def main(argv=None) -> int:
         os.makedirs(args.out, exist_ok=True)
         key = ("self_device_time_total" if kernels and hasattr(
             kernels[0], "self_device_time_total") else "self_cuda_time_total")
-        with open(os.path.join(args.out, "profile_step.txt"), "w") as f:
+        path = os.path.join(args.out, f"profile_{args.mode}.txt")
+        with open(path, "w") as f:
             f.write(prof.key_averages().table(sort_by=key, row_limit=80))
     print(json.dumps(report), flush=True)
     return 0 if busy_ms > 0 else 1

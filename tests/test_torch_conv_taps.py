@@ -4,9 +4,10 @@
   weight-gradient kernels walk) equals a numpy brute force over real
   octree tables, with and without padding rows: pairs, order, counts,
   and the capacity slots past each count left at -1;
-* ``build_plan`` carries them on every level whose convs run a kernel
-  and on none of the dense-grid levels, and the model's own plan has
-  them only when a gradient is recorded;
+* ``build_plan`` carries them on every level but the dense depths it is
+  asked for (the model asks for none: every CPE runs K3/K4, so its plan
+  has them on every level, tests/test_torch_cpe.py), and the model's own
+  plan has them only when a gradient is recorded;
 * ``conv_body`` picks the tensor-core body for bf16 with C and O
   multiples of 16 and the CUDA-core body otherwise;
 * the autograd Functions give the same outputs and gradients with and
