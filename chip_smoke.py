@@ -69,7 +69,31 @@ script exits non-zero without the final line:
    tensor-core bodies, and K5's 16 and K6's 8 that conv_body gives them),
    with no call of F.conv3d; loss, stats and gradients must be finite;
    then 3 warm-up and 10 timed steps give step ms, submaps/s, octree +
-   plan ms per step and peak memory.
+   plan ms per step and peak memory. This phase runs without activation
+   checkpointing (grad_checkpoint False), as every earlier PR measured it.
+6b. entry: the port's own CLIs on the card. A synthetic PNV-format
+   dataset under .chip_tmp/entry (160 places x 2 passes of surface-like
+   4096-point clouds with sigma 0.01 noise, its training-queries pickle,
+   and the four Oxford evaluation splits of 2 runs x 32 places);
+   hotformerloc_torch.training.train's main on configs/oxford.txt's
+   settings with that dataset, batch_size 256 as microbatches of 128
+   (the shipped batch_split_size), 2 epochs, eval_freq and save_freq 1,
+   no validation, and configs/oxford_model.txt unchanged (full width and
+   depth, grad_checkpoint on): finite losses, a checkpoint and a
+   .meta.json per epoch, and every model kernel (K1-K6) launched in that
+   run (counters zeroed just before, read just after). A Trainer resumed
+   from latest must hold the same epoch, parameters, optimizer moments,
+   update count and sampler batch size. pnv_evaluate's main on the final
+   checkpoint must give the in-training evaluation's AR@1 / AR@1% / MRR
+   of epoch 2 exactly, and a brute-force float64 numpy recall of the
+   same embeddings the same stats per split. Then one embed of the 256
+   evaluation clouds in one chunk (val_batch_size) is timed, and one
+   fp32 step at microbatch 8 (batch 16) with and without grad_checkpoint
+   must give the same loss (|diff| <= 1e-6) and gradients within
+   GRAD_TOL. The line carries the card, step ms (median after the
+   first), loader wait per batch, epoch seconds, embed ms per 256 clouds
+   and the peak memory of the training run, of both microbatch-8 steps
+   and of the evaluation.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, with K3 on the same inputs) and mosaic_probe
@@ -96,11 +120,13 @@ script exits non-zero without the final line:
    batch 32, K1/K2 and K5/K6 with their tensor-core launches and the
    CUDA-core bodies' time on the same inputs, K2's time without the table
    gradient, K4/K5/K6's device time, valid taps per node and surface-like
-   rows; then the twelve probe
+   rows, and each kernel's launches in the entry phase's train run as
+   launches_entry; then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
    tools), then {"ok": true, "device": ...}.
 Every phase prints its seconds.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -182,22 +208,26 @@ def clouds(seed=0):
     return pts
 
 
-def surface_clouds(seed=2):
-    """A surface-like batch, for information beside the uniform one: each
-    of BATCH clouds has 4096 points on 3-4 random planes through the cube
-    (uniform in a 1.8-wide square about a centre in +-0.5, clipped to
-    +-0.95), so its nodes have more valid taps than a uniform cloud's."""
-    rng = np.random.default_rng(seed)
-    out = np.empty((BATCH, 4096, 3), np.float32)
-    for b in range(BATCH):
-        n_planes = int(rng.integers(3, 5))
-        which = rng.integers(0, n_planes, 4096)
-        for i in range(n_planes):
-            basis, _ = np.linalg.qr(rng.normal(size=(3, 3)))
-            sel = which == i
-            ab = rng.uniform(-0.9, 0.9, (int(sel.sum()), 2))
-            out[b, sel] = rng.uniform(-0.5, 0.5, 3) + ab @ basis[:, :2].T
+def surface_cloud(rng):
+    """4096 points on 3-4 random planes through the cube (uniform in a
+    1.8-wide square about a centre in +-0.5, clipped to +-0.95), float32:
+    its nodes have more valid taps than a uniform cloud's."""
+    out = np.empty((4096, 3), np.float32)
+    n_planes = int(rng.integers(3, 5))
+    which = rng.integers(0, n_planes, 4096)
+    for i in range(n_planes):
+        basis, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        sel = which == i
+        ab = rng.uniform(-0.9, 0.9, (int(sel.sum()), 2))
+        out[sel] = rng.uniform(-0.5, 0.5, 3) + ab @ basis[:, :2].T
     return np.clip(out, -0.95, 0.95)
+
+
+def surface_clouds(seed=2):
+    """A surface-like batch of BATCH clouds, for information beside the
+    uniform one."""
+    rng = np.random.default_rng(seed)
+    return np.stack([surface_cloud(rng) for _ in range(BATCH)])
 
 
 def taps_per_node(plan, d):
@@ -659,6 +689,347 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
                bf16_losses=losses,
                octree_plan_ms_per_step=statistics.median(plan_ms),
                bf16_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, out
+
+
+ENTRY_LOCS = 160             # entry phase: training places, 2 passes each
+ENTRY_EVAL = 32              # clouds per evaluation run (4 splits x 2 runs)
+ENTRY_SPLITS = ("oxford", "university", "residential", "business")
+MODEL_KERNELS = ("window_attn", "window_attn_bwd", "octree_dwconv",
+                 "octree_dwconv_bwd", "octree_conv", "octree_conv_bwd")
+
+
+def write_entry_dataset(root, n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL,
+                        seed=7):
+    """A PNV-format dataset under ``root``: n_locs places x 2 passes of
+    4096-point surface-like clouds (each pass the place's cloud plus
+    N(0, 0.01) noise, float64 .bin), a training-queries pickle (a
+    cloud's positive is its place's other pass), and the four Oxford
+    evaluation splits, each 2 runs of the same n_eval places (a query's
+    true neighbour is its place in the other run, 100 m from the next
+    place)."""
+    import pickle
+
+    from hotformerloc_torch.data.tuples import TrainingTuple
+    rng = np.random.default_rng(seed)
+
+    def write(rel, base):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        (base + rng.normal(0, 0.01, base.shape)).astype(np.float64) \
+            .tofile(path)
+
+    queries = {}
+    for loc in range(n_locs):
+        base = surface_cloud(rng)
+        for k in range(2):
+            i, sib = 2 * loc + k, 2 * loc + 1 - k
+            write(f"train/{i:04d}.bin", base)
+            queries[i] = TrainingTuple(
+                i, i, f"train/{i:04d}.bin", np.array([sib]),
+                np.array(sorted([i, sib])), np.array([100.0 * loc, 0.0]))
+    with open(os.path.join(root, "training_queries.pickle"), "wb") as f:
+        pickle.dump(queries, f)
+    for split in ENTRY_SPLITS:
+        bases = [surface_cloud(rng) for _ in range(n_eval)]
+        sets = {"database": [], "query": []}
+        for run in range(2):
+            db, q = {}, {}
+            for j, base in enumerate(bases):
+                rel = f"{split}/run{run}_{j:03d}.bin"
+                write(rel, base)
+                db[j] = {"query": rel, "northing": 100.0 * j,
+                         "easting": 0.0}
+                q[j] = {**db[j], 1 - run: [j]}
+            sets["database"].append(db)
+            sets["query"].append(q)
+        for kind, s in sets.items():
+            with open(os.path.join(
+                    root, f"{split}_evaluation_{kind}.pickle"), "wb") as f:
+                pickle.dump(s, f)
+
+
+def numpy_recall(db, qv, query_sets, m, n, k=25):
+    """AR@1..k, AR@1% and MRR of query run n against database run m by
+    brute force in float64 numpy: the PointNetVLAD protocol, written
+    apart from retrieval_topk / get_recall."""
+    d = np.sqrt(((qv[:, None, :].astype(np.float64)
+                  - db[None, :, :].astype(np.float64)) ** 2).sum(-1))
+    order = np.argsort(d, axis=1, kind="stable")[:, :min(k, len(db))]
+    thr = max(int(round(len(db) / 100.0)), 1)
+    hits, ranks, one_pct, n_eval = np.zeros(k), [], 0, 0
+    for i in range(len(qv)):
+        tn = set(query_sets[n][i].get(m, []))
+        if not tn:
+            continue
+        n_eval += 1
+        first = next((j for j, idx in enumerate(order[i]) if idx in tn),
+                     None)
+        if first is not None:
+            hits[first] += 1
+            ranks.append(first + 1)
+        one_pct += bool(tn & set(order[i, :thr].tolist()))
+    return (np.cumsum(hits) / n_eval * 100, one_pct / n_eval * 100,
+            float(np.mean(1.0 / np.asarray(ranks)) * 100) if ranks else 0.0)
+
+
+def entry_phase(torch, dev, smi, pts, pmask):
+    """The port's train and evaluate CLIs on the card (the entry path):
+    train configs/oxford.txt's settings at batch 256 as 2 microbatches of
+    128 with configs/oxford_model.txt unchanged (full width and depth,
+    grad_checkpoint on) for 2 epochs on a synthetic dataset, resume, run
+    pnv_evaluate on the final checkpoint and hold its recalls against
+    the in-training evaluation and a numpy recomputation; then one fp32
+    step at microbatch 8 with and without grad_checkpoint. Returns the
+    launches of the train run and the phase's numbers."""
+    import configparser
+    import dataclasses
+    import pickle
+    import shutil
+
+    from hotformerloc_torch.config.params import (parse_model_config,
+                                                  parse_train_config)
+    from hotformerloc_torch.evaluation import pnv_evaluate
+    from hotformerloc_torch.evaluation.evaluate import get_latent_vectors
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.training import train as train_cli
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+    from hotformerloc_torch.training.trainer import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "entry")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    t0 = time.time()
+    write_entry_dataset(data)
+    out = {"card": smi, "dataset_seconds": time.time() - t0,
+           "train_clouds": 2 * ENTRY_LOCS,
+           "eval_clouds": len(ENTRY_SPLITS) * 2 * ENTRY_EVAL}
+    cp = configparser.ConfigParser()
+    cp.read(os.path.join(here, "configs", "oxford.txt"))
+    cp["DEFAULT"]["dataset_folder"] = data
+    cp["TRAIN"].update(batch_size="256", batch_split_size="128",
+                       epochs="2", eval_freq="1", save_freq="1",
+                       validation="False",
+                       train_file="training_queries.pickle")
+    cfg_path = os.path.join(work, "oxford_entry.txt")
+    with open(cfg_path, "w") as f:
+        cp.write(f)
+    model_cfg = os.path.join(here, "configs", "oxford_model.txt")
+    wdir = os.path.join(work, "weights")
+
+    # -- train through the CLI (the launch counts of this run) ---------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    tr = train_cli.main(["--config", cfg_path, "--model_config", model_cfg,
+                         "--weights_dir", wdir, "--model_name", "entry"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out["train_cli_seconds"] = time.time() - t0
+    out["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in MODEL_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the entry run launched no {missing}")
+    cfg = tr.cfg
+    if not (cfg.grad_checkpoint and cfg.channels == (128, 256)
+            and cfg.num_blocks == (4, 10)
+            and tr.model.dtype == torch.bfloat16
+            and tr.train_step.cfg.accum_steps == 2):
+        raise AssertionError(f"entry run config off: {cfg}")
+    with open(os.path.join(tr.weights_dir, "entry_log.jsonl")) as f:
+        log = [json.loads(ln) for ln in f]
+    train_log = [r for r in log if r["phase"] == "train"]
+    eval_log = {r["epoch"]: r for r in log if r["phase"] == "eval"}
+    if [r["epoch"] for r in train_log] != [1, 2] or sorted(eval_log) != \
+            [1, 2] or not all(np.isfinite(r["loss"]) for r in train_log):
+        raise AssertionError(f"entry train log off: {log}")
+    for tag in ("e1", "e2", "latest", "final"):
+        p = tr.ckpt_path(tag)
+        if not (os.path.exists(p) and os.path.exists(p + ".meta.json")):
+            raise AssertionError(f"no checkpoint {p} or its .meta.json")
+    steps = tr.step_log
+    if [s["size"] for s in steps] != [256, 64, 256, 64]:
+        raise AssertionError(f"entry batches {steps}")
+    out.update(
+        launches=launches, losses=[r["loss"] for r in train_log],
+        epoch_seconds=[r["time"] for r in train_log],
+        steps=[{k: s[k] for k in ("epoch", "size", "step_s", "wait_s")}
+               for s in steps],
+        step_ms_b256_after_first=statistics.median(
+            s["step_s"] * 1e3 for s in steps[1:] if s["size"] == 256),
+        step_ms_after_first=statistics.median(s["step_s"] * 1e3
+                                              for s in steps[1:]),
+        loader_wait_ms_per_batch=statistics.mean(s["wait_s"] * 1e3
+                                                 for s in steps),
+        eval_in_training={e: {k: r[k] for k in ("avg_AR1", "avg_AR1p",
+                                                 "avg_MRR")}
+                          for e, r in eval_log.items()})
+
+    # -- resume from latest --------------------------------------------
+    params = parse_train_config(cfg_path, model_cfg)
+    back = Trainer(params, weights_dir=os.path.join(work, "resume"),
+                   model_name="entry", device=dev)
+    back.close()
+    back.resume(tr.ckpt_path("latest"))
+    sa, sb = tr.optimizer.state_dict(), back.optimizer.state_dict()
+    same = (back.start_epoch == 3
+            and back.train_step.state.step == tr.train_step.state.step == 4
+            and back.train_sampler.batch_size == tr.train_sampler.batch_size
+            and all(torch.equal(x, y) for x, y in zip(
+                tr.model.state_dict().values(),
+                back.model.state_dict().values()))
+            and sa["param_groups"] == sb["param_groups"]
+            and sorted(sa["state"]) == sorted(sb["state"])
+            and len(sa["state"]) == len(list(tr.model.parameters()))
+            and all(torch.equal(sa["state"][k][n], sb["state"][k][n])
+                    for k in sa["state"]
+                    for n in ("step", "exp_avg", "exp_avg_sq")))
+    if not same:
+        raise AssertionError("resumed state differs from the trained one")
+    out["resume"] = {"epoch": back.start_epoch - 1,
+                     "step": back.train_step.state.step,
+                     "sampler_batch_size": back.train_sampler.batch_size,
+                     "tensors": len(tr.model.state_dict())}
+    final = tr.ckpt_path("final")
+    del tr, back, sa, sb
+    torch.cuda.empty_cache()
+
+    # -- pnv_evaluate on the final checkpoint ----------------------------
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(work)                  # it appends pnv_Oxford_results.txt
+    try:
+        kernels.reset_launches()
+        t0 = time.time()
+        stats = pnv_evaluate.main(["--config", cfg_path, "--model_config",
+                                   model_cfg, "--weights", final])
+        torch.cuda.synchronize()
+        eval_launches = dict(kernels.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    out["pnv_evaluate_seconds"] = time.time() - t0
+    out["eval_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for k in ("window_attn", "octree_dwconv", "octree_conv"):
+        if eval_launches[k] == 0:
+            raise AssertionError(f"pnv_evaluate launched no {k}")
+    avg = stats["average"]
+    got = {"avg_AR1": float(avg["ave_recall"][0]),
+           "avg_AR1p": avg["ave_one_percent_recall"],
+           "avg_MRR": avg["ave_mrr"]}
+    if got != out["eval_in_training"][2]:
+        raise AssertionError(f"pnv_evaluate {got} != the in-training "
+                             f"evaluation {out['eval_in_training'][2]}")
+    out["pnv_evaluate"] = {loc: {"AR1": float(s["ave_recall"][0]),
+                                 "AR1p": s["ave_one_percent_recall"],
+                                 "MRR": s["ave_mrr"]}
+                           for loc, s in stats.items()}
+
+    # -- the same recalls in numpy from the same embeddings ---------------
+    embed_fn, _ = pnv_evaluate.load_model_embed_fn(params, final, dev)
+    every = {}
+    for split in ENTRY_SPLITS:
+        sets = {}
+        for kind in ("database", "query"):
+            with open(os.path.join(
+                    data, f"{split}_evaluation_{kind}.pickle"), "rb") as f:
+                sets[kind] = pickle.load(f)
+        dv = [get_latent_vectors(embed_fn, s, params)
+              for s in sets["database"]]
+        qv = [get_latent_vectors(embed_fn, s, params)
+              for s in sets["query"]]
+        r = [numpy_recall(dv[m], qv[n], sets["query"], m, n)
+             for m in range(2) for n in range(2) if m != n]
+        want = stats[split]
+        ok = (np.array_equal(np.mean([x[0] for x in r], axis=0),
+                             want["ave_recall"])
+              and float(np.mean([x[1] for x in r]))
+              == want["ave_one_percent_recall"]
+              and float(np.mean([x[2] for x in r])) == want["ave_mrr"])
+        if not ok:
+            raise AssertionError(f"{split}: numpy recall {r} != "
+                                 f"pnv_evaluate {want}")
+        every.update({len(every) + i: e for i, e in enumerate(
+            [s[j] for s in sets["database"] for j in sorted(s)])})
+    out["numpy_recall_equal"] = True
+
+    # -- one embed of all evaluation clouds at val_batch_size -------------
+    bs = params.val_batch_size
+
+    def timed(p, m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e = embed_fn(p, m)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return e
+
+    times = []
+    get_latent_vectors(timed, every, params)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        emb = get_latent_vectors(timed, every, params)
+    if len(every) != bs or len(times) != 3 or not np.isfinite(emb).all():
+        raise AssertionError(f"embed of {len(every)} clouds in chunks of "
+                             f"{bs}: {len(times)} calls")
+    out.update(embed_ms_per_256=statistics.median(times),
+               embed_ms_all=times,
+               embed_256_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del embed_fn
+    torch.cuda.empty_cache()
+
+    # -- grad_checkpoint at microbatch 8, fp32 ------------------------------
+    mcfg = parse_model_config(model_cfg).config
+    B = 2 * MICRO
+    groups = np.repeat(np.arange(B // 2), 2)
+    sm = groups[:, None] == groups[None]
+    batch = {"points": pts[:B], "pmask": pmask[:B],
+             "positives_mask": torch.from_numpy(
+                 sm & ~np.eye(B, dtype=bool)).to(dev),
+             "negatives_mask": torch.from_numpy(~sm).to(dev)}
+    res = {}
+    for gc in (False, True):
+        m = HOTFormerLoc(dataclasses.replace(mcfg, grad_checkpoint=gc),
+                         device=dev,
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32)
+        opt = make_optimizer(m.parameters(), "adam",
+                             lr_schedule(5e-4, 100, 150), 1e-4)
+        step = make_train_step(m, opt, make_loss(
+            "truncatedsmoothap", positives_per_query=4),
+            StepConfig(accum_steps=2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = step(batch, 0)
+        torch.cuda.synchronize()
+        res[gc] = (float(st["loss"]), {n: p.grad.detach().clone()
+                                       for n, p in m.named_parameters()},
+                   torch.cuda.max_memory_allocated() / 1e9,
+                   (time.perf_counter() - t0) * 1e3)
+        del m, opt, step, st
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for n, g in res[False][1].items():
+        d = float((res[True][1][n] - g).norm())
+        lim = GRAD_TOL[0] * float(g.norm()) + GRAD_TOL[1]
+        worst = max(worst, d / lim)
+    dloss = abs(res[True][0] - res[False][0])
+    if worst > 1.0 or dloss > 1e-6:
+        raise AssertionError(f"grad_checkpoint changes the step: loss diff "
+                             f"{dloss}, worst gradient {worst} of the bar")
+    out["grad_checkpoint_mb8_fp32"] = {
+        "loss": res[True][0], "loss_diff": dloss,
+        "grad_worst_ratio_to_limit": worst,
+        "peak_mem_gb_on": res[True][2], "peak_mem_gb_off": res[False][2],
+        "first_step_ms_on": res[True][3], "first_step_ms_off": res[False][3]}
+    shutil.rmtree(work, ignore_errors=True)
     return launches, out
 
 
@@ -1153,8 +1524,16 @@ def main():
 
     # ---- 6. the train step -----------------------------------------------
     t_phase = time.time()
-    train_launches, train = train_phase(torch, dev, cfg, pts, pmask, cases)
+    train_launches, train = train_phase(
+        torch, dev, dataclasses.replace(cfg, grad_checkpoint=False), pts,
+        pmask, cases)
     emit({"phase": "train", **train,
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 6b. the train and evaluate entry points -------------------------
+    t_phase = time.time()
+    entry_launches, entry = entry_phase(torch, dev, smi, pts, pmask)
+    emit({"phase": "entry", **entry,
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 7. the probe tools ---------------------------------------------
@@ -1250,6 +1629,7 @@ def main():
             "replaces": REPLACES[kname],
             "launches": (train_launches if is_bwd else launches)[kname],
             "launches_train_step": train_launches[kname],
+            "launches_entry": entry_launches[kname],
             "max_abs_err": max(r["err_fp32"] for r in rows),
             "max_abs_err_bf16": max(r["err_bf16"] for r in rows),
             "ms": total("ms_bf16"), "plain_ms": total("plain_ms_bf16"),

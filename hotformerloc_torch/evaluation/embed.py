@@ -13,6 +13,13 @@ import torch
 from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
 
 
+def compute_dtype(device) -> torch.dtype:
+    """The compute dtype of the train and evaluate entry points: bf16 on
+    the card, fp32 on the CPU (as the JAX trainer picks per backend)."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" \
+        else torch.float32
+
+
 def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
                   ) -> Callable[[torch.Tensor, torch.Tensor],
                                 Dict[str, torch.Tensor]]:

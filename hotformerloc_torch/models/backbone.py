@@ -9,6 +9,13 @@ DropPath rates follow ``cfg.drop_path_rates()`` in the JAX package's
 block order (backbone.py:369-396): the stem has none, then one rate per
 OctFormer block, then one per HOTFormer iteration, shared by its RTSA
 and its H-OSA blocks.
+
+With ``cfg.grad_checkpoint`` each OctFormer block and each HOTFormer
+iteration runs under ``torch.utils.checkpoint`` whenever autograd
+records (the JAX package's ``nn.remat`` sites): the backward recomputes
+the block from its inputs instead of keeping its activations. Nothing is
+kept, so the JAX default ``remat_policy = "save_hot"`` (keep the
+attention and CPE outputs) is not followed: the same numbers, more time.
 """
 from __future__ import annotations
 
@@ -16,15 +23,40 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
                                               RelayTokenBlock)
 from hotformerloc_torch.models.config import ModelConfig
-from hotformerloc_torch.models.layers import (ADaPE, Downsample,
+from hotformerloc_torch.models.layers import (ADaPE, Downsample, DropPath,
                                               OctreeConvNormRelu,
                                               OctreeDownConvNormRelu, linear)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import OctreePlan
+
+
+def run_block(cfg: ModelConfig, block: nn.Module, *args):
+    """``block(*args)``, under activation checkpointing when
+    ``cfg.grad_checkpoint`` is set and autograd records. The DropPath
+    masks set on the block now are handed to the recompute (the model
+    clears them once its forward returns, before the backward runs), and
+    the block draws no randomness, so the recompute equals the forward."""
+    if not (cfg.grad_checkpoint and torch.is_grad_enabled()):
+        return block(*args)
+    sites = [m for m in block.modules() if isinstance(m, DropPath)]
+    masks = [s.mask for s in sites]
+
+    def run(*a):
+        prev = [s.mask for s in sites]
+        for s, m in zip(sites, masks):
+            s.mask = m
+        try:
+            return block(*a)
+        finally:
+            for s, m in zip(sites, prev):
+                s.mask = m
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class PatchEmbed(nn.Module):
@@ -61,6 +93,7 @@ class OctFormerStage(nn.Module):
     def __init__(self, cfg: ModelConfig, dim: int, num_heads: int,
                  drop_paths: Sequence[float], depth: int, device=None):
         super().__init__()
+        self.cfg = cfg
         self.num_blocks = len(drop_paths)
         for i, dp in enumerate(drop_paths):
             self.add_module(f"block{i}", OctFormerBlock(
@@ -71,7 +104,7 @@ class OctFormerStage(nn.Module):
 
     def forward(self, x, ctx):
         for i in range(self.num_blocks):
-            x = getattr(self, f"block{i}")(x, ctx)
+            x = run_block(self.cfg, getattr(self, f"block{i}"), x, ctx)
         return x
 
 
@@ -173,7 +206,8 @@ class HOTFormerStage(nn.Module):
         rt_mask = torch.cat([ow.window_valid(ctx.node_valid, chunk)
                              for ctx in ctxs], dim=1)
         for it in self.iters:
-            rt_comb, locals_ = it(rt_comb, locals_, ctxs, rt_mask)
+            rt_comb, locals_ = run_block(c, it, rt_comb, locals_, ctxs,
+                                         rt_mask)
         return dict(zip(self.depths, locals_)), rt_comb, rt_mask
 
 

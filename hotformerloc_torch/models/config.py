@@ -2,10 +2,13 @@
 
 Own copy of the JAX package's ``ModelConfig`` (hotformerloc_tpu/models/
 config.py) so that a config reads the same in both packages. The fields
-``use_band_conv``, ``band_tile``, ``band_halo``, ``use_pallas_attn``,
-``remat_policy`` and ``grad_checkpoint`` select TPU code paths there and
-have no effect here: this package picks kernels with
-``HOTFormerLoc.set_use_kernels`` instead.
+``use_band_conv``, ``band_tile``, ``band_halo``, ``use_pallas_attn`` and
+``remat_policy`` select TPU code paths there and have no effect here:
+this package picks kernels with ``HOTFormerLoc.set_use_kernels``
+instead, and recomputes every checkpointed block in full.
+``grad_checkpoint`` acts as it does there: each OctFormer block and each
+HOTFormer iteration recomputes its activations in the backward
+(models/backbone.py ``run_block``).
 """
 from __future__ import annotations
 

@@ -129,3 +129,9 @@ class HOTFormerLoc(nn.Module):
         return {"global": x,
                 "octree_overflow": octree.overflow.sum(),
                 "band_overflow": plan.band_overflow()}
+
+
+def param_count(model: nn.Module) -> int:
+    """Number of parameter elements (the JAX package's ``param_count``
+    over the flax params)."""
+    return sum(p.numel() for p in model.parameters())

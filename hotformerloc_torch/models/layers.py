@@ -30,8 +30,10 @@ from hotformerloc_torch.ops import conv as plain
 from hotformerloc_torch.ops.kernels import octree_conv as kconv
 
 # Parameter initialisers, matching the JAX package's distributions:
-#   ("trunc", std)  truncated normal in [-2 std, 2 std] with stddev std
-#                   (flax truncated_normal; Linear kernels, RPE tables)
+#   ("trunc", std)  N(0, std^2) truncated to [-2 std, 2 std] (flax
+#                   truncated_normal(std): std is the untruncated
+#                   normal's, the samples' is 0.88 std; Linear kernels,
+#                   RPE tables)
 #   ("fan_in",)     variance_scaling(1, fan_in, truncated_normal) with
 #                   fan_in = prod(shape[:-1]) (octree conv kernels)
 #   ("normal", s)   normal(s) (pooling queries)
@@ -59,11 +61,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 raise ValueError(f"parameter {name} has no initialiser")
             t = torch.empty(p.shape, dtype=torch.float32)
             if kind[0] in ("trunc", "fan_in"):
-                std = (kind[1] if kind[0] == "trunc"
-                       else 1.0 / math.sqrt(math.prod(p.shape[:-1])))
+                # variance_scaling corrects for the truncation,
+                # truncated_normal does not
+                scale = (kind[1] if kind[0] == "trunc" else 1.0 / (
+                    math.sqrt(math.prod(p.shape[:-1])) * _TRUNC_STD))
                 nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                       generator=generator)
-                t.mul_(std / _TRUNC_STD)
+                t.mul_(scale)
             elif kind[0] == "normal":
                 t.normal_(0.0, kind[1], generator=generator)
             elif kind[0] == "const":

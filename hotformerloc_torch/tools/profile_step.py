@@ -6,7 +6,8 @@ on the card.
 
 ``--mode train`` (the default) builds the step chip_smoke.py times
 (oxford_config, batch 32 as 4 microbatches of 8, bf16 compute on fp32
-parameters, Adam, DropPath 0.5, seeded random weights and bench.py's
+parameters, no activation checkpointing, Adam, DropPath 0.5, seeded
+random weights and bench.py's
 synthetic clouds); ``--mode embed`` the serving call chip_smoke.py
 times (``make_embed_fn`` in bf16, batch 32 of the same clouds, the same
 weights). It warms the call up and traces ``--steps`` calls with
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
     from hotformerloc_torch.training.step import StepConfig, make_train_step
 
     B, dev = 32, torch.device("cuda")
-    cfg = oxford_config()
+    cfg = oxford_config(grad_checkpoint=False)
     rng = np.random.default_rng(0)
     base = rng.uniform(-0.9, 0.9, (B // 2, cfg.num_points, 3))
     pts = np.repeat(base.astype(np.float32), 2, axis=0)

@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 
 from hotformerloc_torch.losses.losses import kd_loss
 from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
@@ -50,6 +52,54 @@ class TrainState:
     optimizer's moments: the update count and the EMA teacher."""
     step: int = 0
     ema_model: Optional[HOTFormerLoc] = None
+
+
+def apply_qkv_init(model: nn.Module, generator: torch.Generator,
+                   spec: str) -> None:
+    """Re-initialise every qkv projection weight in place per the model
+    config's ``qkv_init`` (counterpart of the JAX ``apply_qkv_init``).
+
+    spec: "mode[,std]" with mode in torch_default (leave as is) |
+    trunc_normal (N(0, std^2) truncated at 2 std, std 0.02 by default,
+    as flax's truncated_normal(std)) |
+    xavier_uniform | xavier_normal | kaiming_uniform | kaiming_normal,
+    the last four with gain sqrt(2) (relu). A torch weight is
+    (fan_out, fan_in), the transpose of the flax kernel, and the
+    ``torch.nn.init`` calls read the fans that way. Values are drawn on
+    the CPU from ``generator`` in named_parameters order, then copied."""
+    parts = [s.strip() for s in str(spec).split(",")]
+    mode = parts[0]
+    if mode == "torch_default":
+        return
+    gain = math.sqrt(2.0)
+    if mode == "trunc_normal":
+        std = float(parts[1]) if len(parts) > 1 else 0.02
+
+        def init(t):
+            nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+    elif mode == "xavier_uniform":
+        def init(t):
+            nn.init.xavier_uniform_(t, gain, generator=generator)
+    elif mode == "xavier_normal":
+        def init(t):
+            nn.init.xavier_normal_(t, gain, generator=generator)
+    elif mode == "kaiming_uniform":
+        def init(t):
+            nn.init.kaiming_uniform_(t, 0.0, "fan_in", "relu",
+                                     generator=generator)
+    elif mode == "kaiming_normal":
+        def init(t):
+            nn.init.kaiming_normal_(t, 0.0, "fan_in", "relu",
+                                    generator=generator)
+    else:
+        raise ValueError(f"Invalid qkv_init type: {mode}")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "qkv" in name and name.endswith(".weight"):
+                t = torch.empty(p.shape, dtype=torch.float32)
+                init(t)
+                p.copy_(t)
 
 
 def drop_generator(seed: int, micro: int) -> torch.Generator:
