@@ -94,6 +94,26 @@ script exits non-zero without the final line:
    first), loader wait per batch, epoch seconds, embed ms per 256 clouds
    and the peak memory of the training run, of both microbatch-8 steps
    and of the evaluation.
+6c. dp: data parallelism (parallel/dist.py) at Oxford width, bf16 on
+   fp32 parameters, no activation checkpointing, through
+   tools/multihost_smoke on a synthetic PNV dataset of 64 clouds.
+   (a) The DP step at world 1 over NCCL (batch 32 as 4 microbatches of
+   8) against the step without a process group on the same batch and
+   weights: loss within rtol 1e-5, gradients within GRAD_TOL; the same
+   step run again without a group gives the card's run-to-run spread
+   (printed, not checked). (b) Two ranks as two processes on this card
+   over gloo (NCCL refuses two ranks on one device; the CUDA tensors go
+   through the host), 16 rows as 2 microbatches of 8 each, against (a)'s
+   step without a group: loss rtol 1e-5, gradients within GRAD_TOL, and
+   both ranks' parameters bitwise equal after the step. (c)
+   retrieval_topk of 1000 queries over a 20000 x 256 database sharded
+   over two such ranks against one card: indices exact (random normal
+   rows have no distance ties), distances within 1e-5 of one card's and
+   of the distances recomputed on the host from the returned indices,
+   the ranks' results equal. Every
+   model kernel must launch in (a)'s DP step and on each rank of (b)
+   (counters zeroed just before each step, read just after). The line
+   gives each part's seconds, step seconds and peak memory per rank.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, with K3 on the same inputs) and mosaic_probe
@@ -120,8 +140,9 @@ script exits non-zero without the final line:
    batch 32, K1/K2 and K5/K6 with their tensor-core launches and the
    CUDA-core bodies' time on the same inputs, K2's time without the table
    gradient, K4/K5/K6's device time, valid taps per node and surface-like
-   rows, and each kernel's launches in the entry phase's train run as
-   launches_entry; then the twelve probe
+   rows, each kernel's launches in the entry phase's train run as
+   launches_entry, and in the dp phase's steps as launches_dp (a) and
+   launches_dp_two_ranks (b); then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
    tools), then {"ok": true, "device": ...}.
 Every phase prints its seconds.
@@ -1033,6 +1054,209 @@ def entry_phase(torch, dev, smi, pts, pmask):
     return launches, out
 
 
+DP_BATCH = 32                # dp phase: global batch, microbatches of 8
+DP_DB = 20_000               # (c): database rows, not a multiple of 2
+DP_QUERIES = 1000
+
+
+def _missing(launches):
+    """The model kernels a run's launch counts show no launch of."""
+    return [k for k in MODEL_KERNELS if launches[k] == 0]
+
+
+def _grad_worst(got, want):
+    """Largest |got - want| / (a |want| + b) over the tensors, GRAD_TOL's
+    a and b, and whether every tensor of ``got`` is finite."""
+    import torch
+    worst = max(float((got[n] - w).norm())
+                / (GRAD_TOL[0] * float(w.norm()) + GRAD_TOL[1])
+                for n, w in want.items())
+    return worst, all(bool(torch.isfinite(g).all()) for g in got.values())
+
+
+def dp_phase(torch, smi):
+    """Data parallelism at Oxford width (bf16 compute, fp32 parameters,
+    no activation checkpointing), through tools/multihost_smoke on a
+    synthetic PNV dataset of 2 x DP_BATCH clouds: (a) the DP step at
+    world 1 over NCCL (batch 32 x accum 4) against the step without a
+    process group (twice: the second gives the card's own run-to-run
+    spread); (b) two ranks as two processes on this card over gloo (16
+    rows x accum 2 each) against (a)'s step without a group; (c)
+    retrieval_topk sharded over two such ranks against one card. Returns
+    (launches of (a)'s DP step, of (b)'s two ranks, the phase's
+    numbers)."""
+    import shutil
+
+    from hotformerloc_torch.evaluation.evaluate import retrieval_topk
+    from hotformerloc_torch.parallel import dist
+    from hotformerloc_torch.tools import multihost_smoke as mh
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "dp")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    mh.make_synthetic_dataset(data, n=2 * DP_BATCH, points=4096)
+    common = ["--data", data, "--config", "oxford", "--batch",
+              str(DP_BATCH), "--dtype", "bfloat16", "--device", "cuda"]
+    out = {"card": smi, "config": "oxford_config", "dtype": "bfloat16",
+           "grad_checkpoint": False, "global_batch": DP_BATCH,
+           "microbatch": DP_BATCH // 4, "grad_tol": GRAD_TOL}
+    # the ranks run as separate processes that import the package from here
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [here, os.environ.get("PYTHONPATH")]))}
+
+    # -- (a) world 1 over NCCL -------------------------------------------
+    t0 = time.time()
+    world1 = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                  MASTER_ADDR="localhost", MASTER_PORT=str(dist.free_port()))
+    os.environ.update(world1)
+    try:
+        group, dev = dist.init_from_env("cuda")
+        try:
+            if torch.distributed.get_backend(group) != "nccl":
+                raise AssertionError("world-1 group is not NCCL")
+            args = mh.parse_args(common + ["--accum", "4", "--out", work])
+            res_dp, ten_dp = mh.run(args, group, dev)
+        finally:
+            dist.close(group)
+    finally:
+        for k in world1:
+            os.environ.pop(k)
+    torch.cuda.empty_cache()
+    res_one, ten_one = mh.run(args, None, dev)
+    torch.cuda.empty_cache()
+    res_rep, ten_rep = mh.run(args, None, dev)
+    torch.cuda.empty_cache()
+    worst, finite = _grad_worst(ten_dp["grads"], ten_one["grads"])
+    spread, _ = _grad_worst(ten_rep["grads"], ten_one["grads"])
+    a = {"seconds": time.time() - t0, "loss": res_dp["loss"],
+         "loss_no_group": res_one["loss"], "loss_repeat": res_rep["loss"],
+         "grad_norm": res_dp["grad_norm"],
+         "grad_worst_ratio_to_limit": worst,
+         "repeat_grad_worst_ratio_to_limit": spread,
+         "step_s": res_dp["step_s"], "step_s_no_group": res_one["step_s"],
+         "peak_mem_gb": res_dp["peak_mem_gb"],
+         "peak_mem_gb_no_group": res_one["peak_mem_gb"],
+         "octree_overflow": res_dp["octree_overflow"],
+         "launches": res_dp["launches"]}
+    out["a_nccl_world1"] = a
+    if _missing(res_dp["launches"]):
+        raise AssertionError(f"(a) launched no {_missing(res_dp['launches'])}")
+    if not (finite and worst <= 1.0
+            and abs(a["loss"] - a["loss_no_group"])
+            <= 1e-5 * abs(a["loss_no_group"])):
+        raise AssertionError(f"(a) DP step at world 1 differs from the step "
+                             f"without a group: {a}")
+
+    # -- (b) two ranks on this card over gloo -------------------------------
+    t0 = time.time()
+    bdir = os.path.join(work, "b")
+    dist.torchrun(["-m", mh.TOOL, *common, "--accum", "2", "--backend",
+                   "gloo", "--out", bdir, "--tensors"], 2, bdir,
+                  timeout=600, env=env)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(bdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    grads = torch.load(os.path.join(bdir, "rank0.pt"),
+                       weights_only=True)["grads"]
+    worst, finite = _grad_worst(grads, ten_one["grads"])
+    b = {"seconds": time.time() - t0,
+         "rows_per_rank": [x["rows"] for x in ranks],
+         "backend": ranks[0]["backend"],
+         "losses": [x["loss"] for x in ranks],
+         "grad_worst_ratio_to_limit": worst,
+         "params_bitwise_equal": ranks[0]["param_checksum"]
+         == ranks[1]["param_checksum"],
+         "step_s": [x["step_s"] for x in ranks],
+         "peak_mem_gb": [x["peak_mem_gb"] for x in ranks],
+         "launches": [x["launches"] for x in ranks]}
+    out["b_gloo_two_ranks"] = b
+    for x in ranks:
+        if _missing(x["launches"]):
+            raise AssertionError(f"(b) rank {x['rank']} launched no "
+                                 f"{_missing(x['launches'])}")
+    if not (finite and worst <= 1.0 and b["params_bitwise_equal"]
+            and b["rows_per_rank"] == [DP_BATCH // 2] * 2
+            and all(abs(x - res_one["loss"]) <= 1e-5 * abs(res_one["loss"])
+                    for x in b["losses"])):
+        raise AssertionError(f"(b) two ranks differ from one process: {b}")
+    del ten_dp, ten_one, ten_rep, grads
+
+    # -- (c) retrieval sharded over two ranks --------------------------------
+    t0 = time.time()
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((DP_QUERIES, 256)).astype(np.float32)
+    db = rng.standard_normal((DP_DB, 256)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    db /= np.linalg.norm(db, axis=1, keepdims=True)
+    cdir = os.path.join(work, "c")
+    os.makedirs(cdir)
+    np.savez(os.path.join(cdir, "in.npz"), q=q, db=db)
+    dist.torchrun([os.path.abspath(__file__), "--dp-retrieval", cdir], 2,
+                  cdir, timeout=600, env=env)
+    got = np.load(os.path.join(cdir, "rank0.npz"))
+    with open(os.path.join(cdir, "rank0.json")) as f:
+        c = json.load(f)
+    retrieval_topk(q, db, 25, device="cuda")           # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_d, want_i = retrieval_topk(q, db, 25, device="cuda")
+    c["single_card_s"] = time.perf_counter() - t1
+    # the distances of the returned indices, recomputed here in fp64
+    recomputed = np.linalg.norm(q[:, None].astype(np.float64)
+                                - db[got["idx"]], axis=-1)
+    c.update(seconds=time.time() - t0, database=list(db.shape),
+             queries=DP_QUERIES, k=25,
+             max_abs_dist_err=float(np.abs(got["dist"] - want_d).max()),
+             max_abs_recomputed_err=float(np.abs(got["dist"]
+                                                 - recomputed).max()),
+             index_mismatches=int((got["idx"] != want_i).sum()))
+    out["c_retrieval_two_ranks"] = c
+    # random normal rows have no distance ties: the indices must be exact,
+    # and the distances (returned and recomputed from the indices) to 1e-5
+    if not (c["index_mismatches"] == 0 and c["max_abs_dist_err"] <= 1e-5
+            and c["max_abs_recomputed_err"] <= 1e-5 and c["ranks_agree"]):
+        raise AssertionError(f"(c) sharded retrieval off: {c}")
+    shutil.rmtree(work, ignore_errors=True)
+    return res_dp["launches"], [x["launches"] for x in ranks], out
+
+
+def dp_retrieval_worker(cdir):
+    """One rank of the dp phase's (c), over gloo on card 0: the sharded
+    retrieval_topk of cdir/in.npz, timed after a warm-up; rank 0 writes
+    the result and its numbers, and both ranks' results must agree."""
+    import torch
+
+    from hotformerloc_torch.evaluation.evaluate import retrieval_topk
+    from hotformerloc_torch.parallel import dist
+    group, dev = dist.init_from_env("cuda", "gloo")
+    try:
+        x = np.load(os.path.join(cdir, "in.npz"))
+        retrieval_topk(x["q"], x["db"], 25, device=dev, group=group)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        d, i = retrieval_topk(x["q"], x["db"], 25, device=dev, group=group)
+        sec = time.perf_counter() - t0
+        mine = torch.from_numpy(np.concatenate([d, i.astype(np.float32)]))
+        every = dist.all_gather_rows(mine[None], group)
+        agree = bool((every == every[0]).all())
+        if dist.rank(group) == 0:
+            np.savez(os.path.join(cdir, "rank0.npz"), dist=d, idx=i)
+            with open(os.path.join(cdir, "rank0.json"), "w") as f:
+                json.dump({"sharded_s": sec, "ranks_agree": agree,
+                           "backend": "gloo (CUDA tensors staged through "
+                                      "the host)",
+                           "peak_mem_gb_rank0":
+                           torch.cuda.max_memory_allocated() / 1e9}, f)
+        dist.barrier(group)
+    finally:
+        dist.close(group)
+    return 0
+
+
 def probes_phase(torch):
     """The probe tools end to end on the card (this slice's main path):
     gather_bench, then mosaic_probe constructs, gather, attn and band,
@@ -1536,6 +1760,11 @@ def main():
     emit({"phase": "entry", **entry,
           "seconds": round(time.time() - t_phase, 1)})
 
+    # ---- 6c. data parallelism -------------------------------------------
+    t_phase = time.time()
+    dp_launches, dp_rank_launches, dp = dp_phase(torch, smi)
+    emit({"phase": "dp", **dp, "seconds": round(time.time() - t_phase, 1)})
+
     # ---- 7. the probe tools ---------------------------------------------
     t_phase = time.time()
     probe_line, tools = probes_phase(torch)
@@ -1630,6 +1859,8 @@ def main():
             "launches": (train_launches if is_bwd else launches)[kname],
             "launches_train_step": train_launches[kname],
             "launches_entry": entry_launches[kname],
+            "launches_dp": dp_launches[kname],
+            "launches_dp_two_ranks": [la[kname] for la in dp_rank_launches],
             "max_abs_err": max(r["err_fp32"] for r in rows),
             "max_abs_err_bf16": max(r["err_bf16"] for r in rows),
             "ms": total("ms_bf16"), "plain_ms": total("plain_ms_bf16"),
@@ -1652,4 +1883,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-retrieval"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(dp_retrieval_worker(sys.argv[2]))
     sys.exit(main())

@@ -180,14 +180,14 @@ class DataLoader:
     file reads, float64→32 conversion, rotations/jitter, clip, pack —
     is numpy over whole clouds and releases the GIL.
 
-    Multi-host: pass ``process_index`` / ``process_count``. Every host
-    must construct the SAME seeded sampler (identical global batch
-    lists); each host then loads only its contiguous row range of every
-    batch, aligned to the k=2 positive-pair groups. Only
-    ``process_count == 1`` is used by this package's trainer so far.
-    Batches whose size is
-    not divisible by ``process_count * K`` are skipped (the sampler's
-    ragged flush batch) so every host always holds the same row count.
+    Data parallelism: pass ``process_index`` / ``process_count`` (the
+    trainer passes its rank and world size). Every rank must construct
+    the SAME seeded sampler (identical global batch lists); each rank
+    then loads only its contiguous row range of every batch (rows r·b ..
+    (r+1)·b, the order ``parallel.dist.all_gather_rows`` stitches back),
+    aligned to the k=2 positive-pair groups. Batches whose size is not
+    divisible by ``process_count * K`` are skipped (the sampler's
+    ragged flush batch) so every rank always holds the same row count.
     """
 
     def __init__(self, dataset: TrainingDataset, sampler: BatchSampler,

@@ -1,11 +1,11 @@
 """PointNetVLAD-protocol evaluation: AR@N, AR@1%, MRR.
 
-Counterpart of hotformerloc_tpu/evaluation/evaluate.py on one card:
-retrieval is a device matmul (query x database distances) + top-k
-(``retrieval_topk``). The protocol is the JAX package's: skip_same_run,
+Counterpart of hotformerloc_tpu/evaluation/evaluate.py: retrieval is a
+device matmul (query x database distances) + top-k (``retrieval_topk``),
+on one card or with the database sharded over the ranks of a process
+group (``group``). The protocol is the JAX package's: skip_same_run,
 top-25 neighbours, AR@1% threshold = max(round(N_db/100), 1), MRR over
-first-hit ranks, and the CSCampus3D aerial-only database rule. Sharded
-retrieval over several cards is later work.
+first-hit ranks, and the CSCampus3D aerial-only database rule.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from hotformerloc_torch.data.augmentation import (CylindricalCoordinates,
                                                   make_val_transform)
 from hotformerloc_torch.data.loaders import get_pointcloud_loader
 from hotformerloc_torch.data.pipeline import clip_to_unit_box, pack_clouds
+from hotformerloc_torch.parallel import dist
 
 NUM_NEIGHBORS = 25
 
@@ -52,23 +53,53 @@ def get_query_database_splits(dataset_name: str):
     return dbs, qs
 
 
+def _dist2(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    sim = q @ d.T
+    qn = (q * q).sum(dim=1, keepdim=True)
+    dn = (d * d).sum(dim=1)[None, :]
+    return torch.clamp(qn + dn - 2.0 * sim, min=0.0)
+
+
 def retrieval_topk(queries, database, k: int = NUM_NEIGHBORS,
-                   device="cuda"):
+                   device="cuda", group=None):
     """(Q, C) queries and (D, C) database embeddings -> (dist (Q, k),
-    idx (Q, k)) numpy arrays, nearest first by L2 distance."""
+    idx (Q, k)) numpy arrays, nearest first by L2 distance.
+
+    Over ``group`` (every rank passes the same arrays) the database rows
+    are sharded as in the JAX package's mesh version: rank r scores rows
+    r·s .. (r+1)·s, s = ceil(D / n), padded rows at +inf distance, keeps
+    its top min(k, s) with global indices, and the all-gathered
+    candidates are merged into the top k on every rank. The result
+    equals one card's up to distance ties."""
     q = torch.as_tensor(np.asarray(queries), dtype=torch.float32,
                         device=device)
     d = torch.as_tensor(np.asarray(database), dtype=torch.float32,
                         device=device)
-    k = min(k, d.shape[0])
+    D = d.shape[0]
+    k = min(k, D)
     with torch.inference_mode():
-        sim = q @ d.T
-        qn = (q * q).sum(dim=1, keepdim=True)
-        dn = (d * d).sum(dim=1)[None, :]
-        dist2 = torch.clamp(qn + dn - 2.0 * sim, min=0.0)
-        neg, idx = torch.topk(-dist2, k, dim=1)
-        dist = torch.sqrt(torch.clamp(-neg, min=0.0))
-    return dist.cpu().numpy(), idx.cpu().numpy()
+        if group is None:
+            neg, idx = torch.topk(-_dist2(q, d), k, dim=1)
+        else:
+            n, r = dist.world(group), dist.rank(group)
+            shard = -(-D // n)
+            lo = r * shard
+            part = _dist2(q, d[lo:lo + shard])
+            pad = shard - part.shape[1]
+            if pad:
+                part = torch.cat([part, part.new_full((q.shape[0], pad),
+                                                      float("inf"))], 1)
+            neg, idx = torch.topk(-part, min(k, shard), dim=1)
+            # (n·Q, kl) rank-major -> (Q, n·kl), then the merged top k
+            negs = dist.all_gather_rows(neg, group)
+            gidx = dist.all_gather_rows(idx + lo, group)
+            Q = q.shape[0]
+            negs = negs.view(n, Q, -1).transpose(0, 1).reshape(Q, -1)
+            gidx = gidx.view(n, Q, -1).transpose(0, 1).reshape(Q, -1)
+            neg, pos = torch.topk(negs, k, dim=1)
+            idx = torch.gather(gidx, 1, pos)
+        dist_k = torch.sqrt(torch.clamp(-neg, min=0.0))
+    return dist_k.cpu().numpy(), idx.cpu().numpy()
 
 
 def get_latent_vectors(embed_fn: Callable, data_set: Dict, params,
@@ -155,14 +186,16 @@ def _log_forensics(model_name: str, query_details: Dict, db_set: Dict,
 
 def get_recall(m: int, n: int, database_vectors, query_vectors, query_sets,
                database_sets, log: bool = False,
-               model_name: str = "model", device="cuda"):
+               model_name: str = "model", device="cuda", group=None):
     """AR@N / AR@1% / MRR for one (database run m, query run n) pair.
     log=True appends false-positive and top-5 forensics to
-    <model_name>_log_*.txt. Retrieval runs on ``device``."""
+    <model_name>_log_*.txt. Retrieval runs on ``device``, sharded over
+    ``group`` when given."""
     db = database_vectors[m]
     qv = query_vectors[n]
     threshold = max(int(round(len(db) / 100.0)), 1)
-    dist, indices = retrieval_topk(qv, db, NUM_NEIGHBORS, device=device)
+    dists, indices = retrieval_topk(qv, db, NUM_NEIGHBORS, device=device,
+                                    group=group)
 
     recall = np.zeros(NUM_NEIGHBORS)
     recall_idx = []
@@ -176,7 +209,7 @@ def get_recall(m: int, n: int, database_vectors, query_vectors, query_sets,
         tn = set(true_neighbors)
         if log:
             _log_forensics(model_name, query_sets[n][i],
-                           database_sets[m], dist[i], indices[i],
+                           database_sets[m], dists[i], indices[i],
                            true_neighbors)
         for j in range(min(NUM_NEIGHBORS, indices.shape[1])):
             if indices[i, j] in tn:
@@ -196,9 +229,10 @@ def get_recall(m: int, n: int, database_vectors, query_vectors, query_sets,
 
 def evaluate_dataset(embed_fn, params, database_sets, query_sets,
                      debug: bool = False, log: bool = False,
-                     model_name: str = "model", device="cuda") -> Dict:
+                     model_name: str = "model", device="cuda",
+                     group=None) -> Dict:
     """One location: embed all runs, score all (db-run, query-run)
-    pairs."""
+    pairs (retrieval sharded over ``group`` when given)."""
     database_embeddings = [get_latent_vectors(embed_fn, s, params, debug)
                            for s in database_sets]
     query_embeddings = [get_latent_vectors(embed_fn, s, params, debug)
@@ -215,7 +249,8 @@ def evaluate_dataset(embed_fn, params, database_sets, query_sets,
             r, opr, mrr = get_recall(i, j, database_embeddings,
                                      query_embeddings, query_sets,
                                      database_sets, log=log,
-                                     model_name=model_name, device=device)
+                                     model_name=model_name, device=device,
+                                     group=group)
             recall += r
             count += 1
             oprs.append(opr)
@@ -227,8 +262,10 @@ def evaluate_dataset(embed_fn, params, database_sets, query_sets,
 
 
 def evaluate(embed_fn, params, debug: bool = False, log: bool = False,
-             model_name: str = "model", device="cuda") -> Dict:
-    """All locations of the configured dataset, and their average."""
+             model_name: str = "model", device="cuda", group=None) -> Dict:
+    """All locations of the configured dataset, and their average. Over
+    ``group`` every rank embeds every cloud and the retrieval is sharded
+    over the ranks; every rank returns the same stats."""
     db_files, q_files = get_query_database_splits(params.dataset_name)
     stats = {}
     aggr = {"opr": [], "recall": [], "mrr": []}
@@ -241,7 +278,7 @@ def evaluate(embed_fn, params, debug: bool = False, log: bool = False,
             query_sets = pickle.load(f)
         s = evaluate_dataset(embed_fn, params, database_sets, query_sets,
                              debug, log=log, model_name=model_name,
-                             device=device)
+                             device=device, group=group)
         stats[loc] = s
         aggr["opr"].append(s["ave_one_percent_recall"])
         aggr["recall"].append(s["ave_recall"])

@@ -8,6 +8,9 @@ Usage:
 ``--weights`` is a checkpoint of this package's trainer
 (``training/trainer.py`` ``save_checkpoint``) or a params-only
 ``state_dict`` file. It runs on the card unless ``--device cpu``.
+Under ``torchrun`` with more than one process every rank embeds the
+clouds on its own card and the retrieval is sharded over the ranks;
+rank 0 prints and writes the results (and the ``--log`` files).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from hotformerloc_torch.evaluation.embed import compute_dtype, make_embed_fn
 from hotformerloc_torch.evaluation.evaluate import (evaluate, print_eval_stats,
                                                     write_eval_stats)
 from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+from hotformerloc_torch.parallel import dist
 
 
 def load_model_embed_fn(params, weights: Optional[str] = None,
@@ -59,14 +63,23 @@ def main(argv: Optional[Sequence[str]] = None):
     params = parse_train_config(args.config, args.model_config,
                                 debug=args.debug,
                                 num_points=args.num_points)
-    embed_fn, model_name = load_model_embed_fn(params, args.weights,
-                                               args.device)
-
-    stats = evaluate(embed_fn, params, debug=args.debug, log=args.log,
-                     model_name=model_name, device=args.device)
-    print_eval_stats(stats)
-    prefix = f"{args.model_config}, {args.weights}"
-    write_eval_stats(f"pnv_{params.dataset_name}_results.txt", prefix, stats)
+    group, device = None, args.device
+    if dist.env_world() > 1:
+        group, device = dist.init_from_env(args.device)
+    try:
+        lead = dist.rank(group) == 0
+        embed_fn, model_name = load_model_embed_fn(params, args.weights,
+                                                   device)
+        stats = evaluate(embed_fn, params, debug=args.debug,
+                         log=args.log and lead, model_name=model_name,
+                         device=device, group=group)
+    finally:
+        dist.close(group)
+    if lead:
+        print_eval_stats(stats)
+        prefix = f"{args.model_config}, {args.weights}"
+        write_eval_stats(f"pnv_{params.dataset_name}_results.txt", prefix,
+                         stats)
     return stats
 
 

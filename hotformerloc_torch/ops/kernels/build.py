@@ -4,11 +4,15 @@ One shared library per source under hotformerloc_torch/csrc/, compiled
 for sm_90a into hotformerloc_torch/build/ and keyed by a hash of the
 source, so an edited source is rebuilt and an unchanged one is reused.
 All sources compile in parallel, one nvcc process each. A missing nvcc
-or a failed build raises: there is no fallback.
+or a failed build raises: there is no fallback. Processes that start
+together (the ranks of one data-parallel run) build one at a time under
+a file lock on the build directory, so the first builds and the others
+load its libraries.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -55,32 +59,40 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         missing = [n for n in SOURCES if n not in _libs]
         if not missing:
             return _libs
-        stale = [n for n in missing if not _target(n).exists()]
-        nvcc = _nvcc() if stale else None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        procs = {}
-        for name in stale:
-            out = _target(name)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
-        failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            PTXAS_LOG[name] = log
-            if proc.returncode != 0:
-                failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        for name in missing:
-            _libs[name] = ctypes.CDLL(str(_target(name)))
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released at close
+            _build(missing)
         return _libs
+
+
+def _build(missing) -> None:
+    """Compile the sources of ``missing`` that have no library, then
+    load every one of them (under ``build_all``'s locks)."""
+    stale = [n for n in missing if not _target(n).exists()]
+    nvcc = _nvcc() if stale else None
+    procs = {}
+    for name in stale:
+        out = _target(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        PTXAS_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (exit {proc.returncode})\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for name in missing:
+        _libs[name] = ctypes.CDLL(str(_target(name)))
 
 
 def library(name: str) -> ctypes.CDLL:

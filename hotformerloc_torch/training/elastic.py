@@ -49,10 +49,15 @@ def install_preemption_handler(trainer,
 def maybe_requeue_exit(trainer, epoch: int):
     """Called by the trainer after each epoch: if a preemption signal
     was seen, save the resumable checkpoint and exit with the requeue
-    code."""
+    code. Over a process group every rank calls it (the trainer agrees
+    on the flag first); rank 0 writes the checkpoint and every rank
+    waits for it before exiting, so the requeue resumes all ranks from
+    it."""
     if not getattr(trainer, "preempted", False):
         return
     path = trainer.save("latest", epoch)
+    from hotformerloc_torch.parallel.dist import barrier
+    barrier(getattr(trainer, "group", None))
     print(f"[elastic] checkpoint saved to {path}; exiting for requeue",
           flush=True)
     sys.exit(REQUEUE_EXIT_CODE)

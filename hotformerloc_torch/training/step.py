@@ -17,6 +17,17 @@ The DropPath masks of microbatch i are drawn from a generator seeded
 from (seed, i), so stages 1 and 3 see the same masks and the recomputed
 embeddings equal the first ones. The compute dtype is the model's
 (``HOTFormerLoc(dtype=...)``); parameters and gradients stay fp32.
+
+Over a process group of n ranks (``parallel/dist.py``) each rank holds
+rows r·b .. (r+1)·b of the global batch of B = n·b clouds and the same
+rows of the (B, B) masks. It runs its accum_steps microbatches, the
+single process's global microbatches r·accum_steps + i (their DropPath
+masks too); stage 2 gathers every rank's embeddings and mask rows, so
+each rank computes the same global loss and its gradient; stage 3
+backpropagates the rank's own rows of it; the parameter gradients are
+summed over the ranks once, after the last microbatch. The step then
+equals one process's step over the global batch with n·accum_steps
+microbatches, up to the order of the fp32 sums.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from torch import nn
 from hotformerloc_torch.losses.losses import kd_loss
 from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
                                                     build_model_plan)
+from hotformerloc_torch.parallel import dist
 
 Batch = Dict[str, torch.Tensor]
 
@@ -118,12 +130,19 @@ class TrainStep:
     on the model's device. Stats are 0-d tensors with the JAX step's
     keys: the loss's, 'octree_overflow', 'band_overflow' (0 here) and
     'grad_norm'. After a step every parameter's ``.grad`` holds that
-    step's gradient."""
+    step's gradient.
+
+    ``group``: the process group of data parallelism (None: one
+    process). Each rank then passes its rows of the global batch, its
+    (b, B) rows of the masks, and the same seed; stats and parameters
+    are the same on every rank, 'octree_overflow' summed over them."""
 
     def __init__(self, model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
-                 loss_fn: Callable, cfg: StepConfig = StepConfig()):
+                 loss_fn: Callable, cfg: StepConfig = StepConfig(),
+                 group=None):
         self.model, self.optimizer, self.loss_fn, self.cfg = (
             model, optimizer, loss_fn, cfg)
+        self.group = group
         self.params = [p for p in model.parameters() if p.requires_grad]
         ema = None          # MESA needs the EMA teacher, as in JAX
         if cfg.use_ema:
@@ -146,35 +165,45 @@ class TrainStep:
             stats = self._multistage(batch, seed)
         return self._finish(stats)
 
+    def _gather_masks(self, batch: Batch):
+        """The global (B, B) masks from every rank's (b, B) rows."""
+        return (dist.all_gather_rows(batch["positives_mask"], self.group),
+                dist.all_gather_rows(batch["negatives_mask"], self.group))
+
     def _single_pass(self, batch: Batch, seed: int):
-        m = self.model
+        m, g = self.model, self.group
         pts, msk = batch["points"], batch["pmask"]
-        masks = m.draw_drop_masks(pts.shape[0], drop_generator(seed, 0))
+        b, r = pts.shape[0], dist.rank(g)
+        masks = m.draw_drop_masks(b, drop_generator(seed, r))
         out = m(pts, msk, drop_masks=masks)
         emb = out["global"]
-        loss, stats = self.loss_fn(emb, batch["positives_mask"],
-                                   batch["negatives_mask"])
+        if g is not None:
+            # the other ranks' rows detached, this rank's with their graph
+            every = dist.all_gather_rows(emb.detach(), g)
+            emb = torch.cat([every[:r * b], emb, every[(r + 1) * b:]])
+        loss, stats = self.loss_fn(emb, *self._gather_masks(batch))
         t_emb = self._teacher(pts, msk)
         if t_emb is not None:
-            loss = loss + self.cfg.mesa * kd_loss(emb, t_emb)
+            loss = loss + self.cfg.mesa * kd_loss(
+                emb, dist.all_gather_rows(t_emb, g))
         loss.backward()
         stats = dict(stats, octree_overflow=out["octree_overflow"],
                      band_overflow=out["band_overflow"])
         return stats
 
     def _multistage(self, batch: Batch, seed: int):
-        m, A = self.model, self.cfg.accum_steps
+        m, A, g = self.model, self.cfg.accum_steps, self.group
         pts, msk = batch["points"], batch["pmask"]
-        B = pts.shape[0]
-        if B % A:
-            raise ValueError(f"batch {B} is not a multiple of "
+        b, r = pts.shape[0], dist.rank(g)
+        if b % A:
+            raise ValueError(f"batch {b} is not a multiple of "
                              f"accum_steps {A}")
-        mb = B // A
+        mb = b // A
         chunks = [slice(i * mb, (i + 1) * mb) for i in range(A)]
         with torch.no_grad():
             plans = [build_model_plan(m.cfg, pts[sl], msk[sl])
                      for sl in chunks]
-        masks = [m.draw_drop_masks(mb, drop_generator(seed, i))
+        masks = [m.draw_drop_masks(mb, drop_generator(seed, r * A + i))
                  for i in range(A)]
 
         # Stage 1: embeddings without parameter gradients.
@@ -187,15 +216,17 @@ class TrainStep:
                 t = self._teacher(pts[sl], msk[sl], plans[i])
                 if t is not None:
                     t_embs.append(t)
-        emb = torch.cat(embs).detach().requires_grad_(True)
+        emb = dist.all_gather_rows(torch.cat(embs), g).detach() \
+            .requires_grad_(True)
 
         # Stage 2: loss over the full batch, gradient w.r.t. embeddings.
         with torch.enable_grad():
-            loss, stats = self.loss_fn(emb, batch["positives_mask"],
-                                       batch["negatives_mask"])
+            loss, stats = self.loss_fn(emb, *self._gather_masks(batch))
             if t_embs:
-                loss = loss + self.cfg.mesa * kd_loss(emb, torch.cat(t_embs))
+                loss = loss + self.cfg.mesa * kd_loss(
+                    emb, dist.all_gather_rows(torch.cat(t_embs), g))
             (g_emb,) = torch.autograd.grad(loss, emb)
+        g_emb = g_emb[r * b:(r + 1) * b]      # this rank's rows
         stats = dict(stats, octree_overflow=torch.stack(ovf).sum(),
                      band_overflow=plans[0].band_overflow())
 
@@ -214,6 +245,9 @@ class TrainStep:
         for p in self.params:       # JAX gives zeros, not None, to unused
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # once per step: the gradients and the overflow count, summed
+        dist.all_reduce_sum_([p.grad for p in self.params]
+                             + [stats["octree_overflow"]], self.group)
         stats["grad_norm"] = _grad_norm(self.params)
         lr = self.optimizer.schedule(self.state.step)
         for group in self.optimizer.param_groups:
@@ -232,24 +266,28 @@ class TrainStep:
 
 
 def make_train_step(model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable, cfg: StepConfig = StepConfig()
-                    ) -> TrainStep:
+                    loss_fn: Callable, cfg: StepConfig = StepConfig(),
+                    group=None) -> TrainStep:
     """The train step: single pass for accum_steps <= 1, else the
-    multistage step. The optimizer comes from ``make_optimizer`` (it
-    carries the learning-rate schedule)."""
-    return TrainStep(model, optimizer, loss_fn, cfg)
+    multistage step; over ``group`` when given (data parallelism,
+    accum_steps microbatches per rank). The optimizer comes from
+    ``make_optimizer`` (it carries the learning-rate schedule)."""
+    return TrainStep(model, optimizer, loss_fn, cfg, group)
 
 
-def make_eval_step(model: HOTFormerLoc, loss_fn: Callable):
+def make_eval_step(model: HOTFormerLoc, loss_fn: Callable, group=None):
     """Validation step: embeddings (eval mode, no gradients) + loss
-    stats."""
+    stats; over ``group``, of every rank's rows gathered, so the stats
+    equal one process's on the global batch."""
 
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.no_grad():
             out = model(batch["points"], batch["pmask"])
-            _, stats = loss_fn(out["global"], batch["positives_mask"],
-                               batch["negatives_mask"])
+            _, stats = loss_fn(
+                dist.all_gather_rows(out["global"], group),
+                dist.all_gather_rows(batch["positives_mask"], group),
+                dist.all_gather_rows(batch["negatives_mask"], group))
         return stats
 
     return eval_step

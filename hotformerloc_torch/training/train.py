@@ -5,7 +5,17 @@ Usage:
       --model_config configs/oxford_model.txt [--resume_from ckpt] \
       [--debug] [--device cpu]
 
-It trains on the card unless ``--device cpu``.
+It trains on the card unless ``--device cpu``. Under ``torchrun`` with
+more than one process (WORLD_SIZE > 1) it trains one model data-parallel
+over the ranks, each on its own card (``cuda:LOCAL_RANK``, NCCL; gloo
+with ``--device cpu``):
+
+  torchrun --nproc_per_node 4 -m hotformerloc_torch.training.train \
+      --config configs/oxford.txt --model_config configs/oxford_model.txt
+
+``batch_size`` stays the global batch; ``batch_split_size`` is the
+microbatch one card holds, so each rank runs
+``batch_size / nproc / batch_split_size`` microbatches per step.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import Optional, Sequence
 
 from hotformerloc_torch.config.params import (parse_train_config,
                                               update_params_from_dict)
+from hotformerloc_torch.parallel import dist
 from hotformerloc_torch.training.elastic import install_preemption_handler
 from hotformerloc_torch.training.trainer import Trainer
 from hotformerloc_torch.utils.seed import set_seed
@@ -62,16 +73,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             except (ValueError, SyntaxError):
                 ov[k] = v
         update_params_from_dict(params, ov)
-    trainer = Trainer(params, weights_dir=args.weights_dir,
-                      model_name=args.model_name, device=args.device,
-                      seed=args.seed)
+    group, device = None, args.device
+    if dist.env_world() > 1:
+        group, device = dist.init_from_env(args.device)
     try:
-        if args.resume_from:
-            trainer.resume(args.resume_from)
-        install_preemption_handler(trainer)
-        trainer.train()
+        trainer = Trainer(params, weights_dir=args.weights_dir,
+                          model_name=args.model_name, device=device,
+                          seed=args.seed, group=group)
+        try:
+            if args.resume_from:
+                trainer.resume(args.resume_from)
+            install_preemption_handler(trainer)
+            trainer.train()
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        dist.close(group)
     return trainer
 
 

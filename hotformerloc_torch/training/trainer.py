@@ -1,7 +1,8 @@
 """Training loop: epochs, checkpoint/resume, eval hooks, dynamic
 batch expansion, metric logging.
 
-Counterpart of hotformerloc_tpu/training/trainer.py on one device:
+Counterpart of hotformerloc_tpu/training/trainer.py, on one device or
+over a process group (data parallelism, ``parallel/dist.py``):
   * the port's train step (``training/step.py``: single pass or the
     multistage step over ``batch_size / batch_split_size`` microbatches)
     in place of the jitted one;
@@ -11,7 +12,12 @@ Counterpart of hotformerloc_tpu/training/trainer.py on one device:
     ``epoch`` and ``best``, with the JAX package's ``<ckpt>.meta.json``
     side file (``wandb_run_id``, ``sampler_batch_size``);
   * the loader yields numpy batches, which the trainer moves to the
-    model's device.
+    model's device;
+  * over a group of n ranks each rank loads its rows of every global
+    batch and runs ``batch_size / n / batch_split_size`` microbatches of
+    the step; only rank 0 writes the log, the checkpoints and the wandb
+    run, and every rank evaluates (retrieval sharded over the ranks), as
+    the JAX trainer evaluates on every host.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from hotformerloc_torch.evaluation.embed import compute_dtype, make_embed_fn
 from hotformerloc_torch.evaluation.evaluate import evaluate
 from hotformerloc_torch.losses.losses import make_loss
 from hotformerloc_torch.models.hotformerloc import HOTFormerLoc, param_count
+from hotformerloc_torch.parallel import dist
 from hotformerloc_torch.training.optim import lr_schedule, make_optimizer
 from hotformerloc_torch.training.step import (StepConfig, TrainStep,
                                               apply_qkv_init, make_eval_step,
@@ -131,33 +138,39 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """End-to-end training orchestration on one device.
+    """End-to-end training orchestration on one device, or on one rank
+    of ``group`` (data parallelism; None: one process).
 
-    ``device``: the card unless the caller passes "cpu". ``dtype``: the
+    ``device``: the card unless the caller passes "cpu" (over a group:
+    the rank's card, ``init_from_env``'s). ``dtype``: the
     compute dtype, bf16 on the card and fp32 on the CPU by default
     (parameters stay fp32). ``seed`` draws the initial weights (the qkv
     projections per the model config's ``qkv_init``), the sampler's
     shuffle, the loader's augmentations and every step's DropPath
-    masks."""
+    masks; over a group the weights are then broadcast from rank 0."""
 
     def __init__(self, params: TrainParams, weights_dir: str = "weights",
                  model_name: Optional[str] = None,
                  dtype: Optional[torch.dtype] = None, device="cuda",
-                 seed: int = 42):
+                 seed: int = 42, group=None):
         self.params = params
         cfg = params.model_params.config
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = dtype or compute_dtype(self.device)
         self.seed = seed
+        self.group = group
+        self.rank, self.world = dist.rank(group), dist.world(group)
         g = torch.Generator().manual_seed(seed)
         self.model = HOTFormerLoc(cfg, device=self.device, generator=g,
                                   dtype=self.dtype)
         qkv_init = getattr(params.model_params, "qkv_init", None)
         if qkv_init:
             apply_qkv_init(self.model, g, qkv_init)
-        print(f"Model: {cfg.model}  parameters: {param_count(self.model)}")
-        if params.verbose:
+        dist.broadcast_module_(self.model, 0, group)
+        self._print(f"Model: {cfg.model}  parameters: "
+                    f"{param_count(self.model)}")
+        if params.verbose and self.rank == 0:
             from hotformerloc_torch.utils.profiling import print_info
             print_info(cfg.model, self.model, depth=2)
         self.model_name = model_name or \
@@ -165,9 +178,10 @@ class Trainer:
         self.weights_dir = os.path.join(weights_dir,
                                         params.dataset_name or "default")
         os.makedirs(self.weights_dir, exist_ok=True)
+        lead = self.rank == 0               # writes logs and checkpoints
         self.logger = MetricLogger(
-            os.path.join(self.weights_dir, self.model_name + "_log.jsonl"),
-            use_wandb=params.wandb)
+            os.path.join(self.weights_dir, self.model_name + "_log.jsonl")
+            if lead else None, use_wandb=params.wandb and lead)
 
         # data
         loader = get_pointcloud_loader(params.dataset_name or "")
@@ -185,6 +199,8 @@ class Trainer:
             max_batches=2 if params.debug else None, seed=seed)
         self.train_loader = DataLoader(self.train_ds, self.train_sampler,
                                        cfg.num_points, seed=seed,
+                                       process_index=self.rank,
+                                       process_count=self.world,
                                        num_workers=params.num_workers)
         self.val_loader = None
         if params.validation and params.val_file:
@@ -201,6 +217,8 @@ class Trainer:
                                        else None, seed=seed)
             self.val_loader = DataLoader(val_ds, val_sampler,
                                          cfg.num_points, seed=seed,
+                                         process_index=self.rank,
+                                         process_count=self.world,
                                          num_workers=params.num_workers)
 
         # steps
@@ -214,7 +232,9 @@ class Trainer:
                                         params.optimizer, sched,
                                         params.weight_decay)
         self.loss_fn = make_loss(params.loss, **loss_kwargs(params))
-        accum_steps = (max(params.batch_size // params.batch_split_size, 1)
+        # batch_split_size is what one card holds: per rank
+        accum_steps = (max(params.batch_size // self.world
+                           // params.batch_split_size, 1)
                        if params.batch_split_size else 1)
         self.use_ema = params.mesa > 0.0
         self.step_cfg_nomesa = StepConfig(accum_steps=accum_steps,
@@ -223,8 +243,9 @@ class Trainer:
                                         use_ema=self.use_ema,
                                         mesa=params.mesa)
         self.train_step = make_train_step(self.model, self.optimizer,
-                                          self.loss_fn, self.step_cfg_nomesa)
-        self.eval_step = make_eval_step(self.model, self.loss_fn)
+                                          self.loss_fn, self.step_cfg_nomesa,
+                                          group)
+        self.eval_step = make_eval_step(self.model, self.loss_fn, group)
         self.start_epoch = 1
         self.best_metric = 0.0
         self.wandb_run_id: Optional[str] = None
@@ -236,6 +257,10 @@ class Trainer:
         self.step_log: list = []
 
     # -- lifecycle ------------------------------------------------------
+    def _print(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg, flush=True)
+
     def ckpt_path(self, tag: str) -> str:
         return os.path.join(self.weights_dir,
                             f"{self.model_name}_{tag}.ckpt")
@@ -245,9 +270,12 @@ class Trainer:
                 "sampler_batch_size": int(self.train_sampler.batch_size)}
 
     def save(self, tag: str, epoch: int) -> str:
+        """Write checkpoint ``tag`` (rank 0 only; every rank holds the
+        same state). Returns its path."""
         path = self.ckpt_path(tag)
-        save_checkpoint(path, self.train_step, epoch, self.best_metric,
-                        self._extra_meta())
+        if self.rank == 0:
+            save_checkpoint(path, self.train_step, epoch, self.best_metric,
+                            self._extra_meta())
         return path
 
     def resume(self, path: str):
@@ -258,8 +286,8 @@ class Trainer:
         if bs > 0:
             self.train_sampler.batch_size = bs
         self.wandb_run_id = extra.get("wandb_run_id") or None
-        print(f"Resumed from {path} at epoch {epoch}"
-              + (f" (batch_size={bs})" if bs else ""))
+        self._print(f"Resumed from {path} at epoch {epoch}"
+                    + (f" (batch_size={bs})" if bs else ""))
 
     def make_embed_fn(self):
         """(points, pmask) -> (B, D) descriptors of the current weights
@@ -269,7 +297,8 @@ class Trainer:
 
     def evaluate(self) -> Dict:
         return evaluate(self.make_embed_fn(), self.params,
-                        debug=self.params.debug, device=self.device)
+                        debug=self.params.debug, device=self.device,
+                        group=self.group)
 
     # -- loop -----------------------------------------------------------
     def train(self):
@@ -311,9 +340,8 @@ class Trainer:
                                loader_wait=wait)
             self.logger.log(epoch_stats)
             loss_s = epoch_stats.get("loss", float("nan"))
-            print(f"epoch {epoch}: loss={loss_s:.4f} "
-                  f"({bi} batches, {epoch_stats['time']:.1f}s)",
-                  flush=True)
+            self._print(f"epoch {epoch}: loss={loss_s:.4f} "
+                        f"({bi} batches, {epoch_stats['time']:.1f}s)")
 
             if self.val_loader is not None:
                 vagg: Dict[str, list] = {}
@@ -335,7 +363,7 @@ class Trainer:
                 try:
                     stats = self.evaluate()
                 except FileNotFoundError as e:
-                    print(f"[WARN] eval skipped: {e}")
+                    self._print(f"[WARN] eval skipped: {e}")
                 else:
                     avg = stats["average"]
                     ar1 = float(avg["ave_recall"][0])
@@ -347,7 +375,10 @@ class Trainer:
                         self.best_metric = ar1
                         self.save("best", epoch)
 
-            # preemption: checkpoint + requeue exit
+            # preemption: checkpoint + requeue exit, on every rank when
+            # any rank was signalled
+            self.preempted = dist.any_rank(self.preempted, self.device,
+                                           self.group)
             if self.preempted:
                 from hotformerloc_torch.training.elastic import \
                     maybe_requeue_exit
@@ -360,8 +391,8 @@ class Trainer:
                        / max(epoch_stats.get("num_triplets", 1.0), 1.0))
                 if nzr < p.batch_expansion_th:
                     if self.train_sampler.expand_batch():
-                        print(f"Batch expanded to "
-                              f"{self.train_sampler.batch_size}")
+                        self._print(f"Batch expanded to "
+                                    f"{self.train_sampler.batch_size}")
 
         if not p.debug:
             self.save("final", p.epochs)
