@@ -114,6 +114,31 @@ script exits non-zero without the final line:
    model kernel must launch in (a)'s DP step and on each rank of (b)
    (counters zeroed just before each step, read just after). The line
    gives each part's seconds, step seconds and peak memory per rank.
+6d. configs: the patch-64 and no-ADaPE configurations at full width.
+   (a) cs_wild_places_config (depth-7 octree, patch 64: OctFormer windows
+   of T = 64, H-OSA windows of 64 nodes + a relay slot, T = 65): K1 at
+   every shape of its forward (batch 32) and K2 at every shape of its
+   train step (microbatch 8), held and timed as in phases 3 and 5, with
+   the tensor-core backward's heads per round; then the slice's checks
+   (serve_check: K1 34 all on the tensor-core body, K3 34, K5 3; fp32
+   kernel vs plain descriptors cos >= 0.9999, max abs <= 1e-4) and bf16
+   embed time on the uniform batch and on the surface-like one. (b) its
+   train step as phase 6 (fp32 gradients within GRAD_TOL, stage 3 equal
+   to stage 1, bf16 launches K1 272, K2 136 on the tensor-core bodies),
+   5 timed steps. (c) configs/wild-places_model.txt (no ADaPE: the
+   relay-token CPE adds a K3 launch per pyramid level, 37 per forward;
+   cylindrical coordinates): the uniform clouds through the port's
+   cylindrical conversion, serve_check, then its train step as (b)
+   (fp32 gradients through the relay-token CPE's K4 within GRAD_TOL; bf16
+   launches K3 296 and K4 148), 5 timed steps. (d) the train CLI on
+   configs/cs-wild-places.txt and configs/cs-wild-places_model.txt
+   unchanged but for batch 256 (2 microbatches of the shipped 128), 1
+   epoch, eval_freq and save_freq 1, on a synthetic .pcd dataset under the
+   CSWildPlaces names (training and validation pickles, four locations'
+   evaluation pickles): validation and MESA run, every model kernel
+   launches, and pnv_evaluate on the final checkpoint reports the four
+   locations with the in-training average. The line gives each part's
+   numbers and seconds with the card.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, with K3 on the same inputs) and mosaic_probe
@@ -144,7 +169,12 @@ script exits non-zero without the final line:
    launches_entry, and in the dp phase's steps as launches_dp (a) and
    launches_dp_two_ranks (b); then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
-   tools), then {"ok": true, "device": ...}.
+   tools). K1's and K2's rows add the same numbers at
+   cs_wild_places_config's shapes (cs_wild_places), and every model
+   kernel's row its launches in the configs phase's runs (per bf16
+   forward and train step of CS-Wild-Places and of Wild-Places, and in
+   the CS-Wild-Places CLI run). Then {"ok": true, "device":
+   ...}.
 Every phase prints its seconds.
 """
 import dataclasses
@@ -229,13 +259,13 @@ def clouds(seed=0):
     return pts
 
 
-def surface_cloud(rng):
-    """4096 points on 3-4 random planes through the cube (uniform in a
-    1.8-wide square about a centre in +-0.5, clipped to +-0.95), float32:
-    its nodes have more valid taps than a uniform cloud's."""
-    out = np.empty((4096, 3), np.float32)
+def surface_cloud(rng, points=4096):
+    """``points`` points on 3-4 random planes through the cube (uniform in
+    a 1.8-wide square about a centre in +-0.5, clipped to +-0.95),
+    float32: its nodes have more valid taps than a uniform cloud's."""
+    out = np.empty((points, 3), np.float32)
     n_planes = int(rng.integers(3, 5))
-    which = rng.integers(0, n_planes, 4096)
+    which = rng.integers(0, n_planes, points)
     for i in range(n_planes):
         basis, _ = np.linalg.qr(rng.normal(size=(3, 3)))
         sel = which == i
@@ -333,110 +363,158 @@ def f1_phase(torch, dev):
     return out
 
 
-class CountConv3d:
-    """Counts calls of torch.nn.functional.conv3d inside the block (the
-    dense-grid CPE's only cuDNN call): the main path must make none."""
-
-    def __enter__(self):
-        import torch.nn.functional as F
-        self.F, self.real, self.calls = F, F.conv3d, 0
-
-        def counting(*a, **k):
-            self.calls += 1
-            return self.real(*a, **k)
-        F.conv3d = counting
-        return self
-
-    def __exit__(self, *exc):
-        self.F.conv3d = self.real
+def compare(out, ref, kernel, dt):
+    """Max |kernel - plain| of a forward output, checked against TOL."""
+    import torch
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    lim = (TOL["fp32"][kernel] if dt == "fp32"
+           else TOL["bf16_rel"] * max(1.0, scale))
+    if not (err <= lim and torch.isfinite(out.float()).all()):
+        raise AssertionError(f"{kernel} {dt}: max |kernel - plain| = "
+                             f"{err} > {lim}")
+    return err
 
 
-def path_cases(cfg):
-    """Every kernel shape of one oxford_config forward, with its launches
-    per forward: window_attn (label, depth, C, H, dilation, G, n),
-    octree_dwconv (label, depth, C, n), octree_conv (label, depth, C, O,
-    n). The stem's first conv (C = 3 input features) needs no dx."""
-    nb_octf, nb_hotf = cfg.num_blocks[0], cfg.num_blocks[-1]
-    octf_c, octf_h = cfg.channels[0], cfg.num_heads[0]
-    _, pyr_c = cfg.stage_channels()
-    _, pyr_h = cfg.stage_heads()
-    td = cfg.transformer_depth
-    attn = [("octf_dil1", td, octf_c, octf_h, 1, 0, (nb_octf + 1) // 2),
-            ("octf_dil%d" % cfg.dilation, td, octf_c, octf_h,
-             cfg.dilation, 0, nb_octf // 2)]
-    attn += [(f"hosa_d{d}", d, pyr_c[j], pyr_h[j], 1, 1, nb_hotf)
-             for j, d in enumerate(cfg.pyramid_depths)]
-    dw = [(f"cpe_d{td}", td, octf_c, nb_octf)]
-    dw += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
-           for j, d in enumerate(cfg.pyramid_depths)]
-    chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
-    conv = [(f"stem_conv{i}_d{cfg.octree_depth - i}", cfg.octree_depth - i,
-             3 if i == 0 else chans[i], chans[i], 1)
-            for i in range(cfg.stem_down)]
-    conv.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
-    return {"window_attn": attn, "octree_dwconv": dw, "octree_conv": conv}
+def check_bwd(outs, refs, kinds, kernel, dt):
+    """Largest max |kernel - plain| over a backward's outputs (None refs
+    skipped), each checked against TOL_BWD relative to max(1, max
+    |plain|)."""
+    import torch
+    errs = []
+    for o, r, kind in zip(outs, refs, kinds):
+        if r is None:
+            continue
+        err = float((o.float() - r.float()).abs().max())
+        lim = TOL_BWD[dt][kind] * max(1.0, float(r.float().abs().max()))
+        if not (err <= lim and torch.isfinite(o.float()).all()):
+            raise AssertionError(f"{kernel} {dt}: max |kernel - plain| "
+                                 f"= {err} > {lim}")
+        errs.append(err)
+    return max(errs)
 
 
-def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
-                     rnd, device_jobs):
-    """K2, K4, K6 against their plain versions and timed, at every shape
-    of the train path (microbatch ``pts``; K4 and K6 also on the
-    surface-like microbatch ``spts``); rows per kernel name. K4's and K6's
-    device-time calls are appended to ``device_jobs``."""
-    from hotformerloc_torch.models.hotformerloc import build_model_plan
+def attn_windows(cfg, plan, d, D, G):
+    """The K1/K2 inputs of one attention site from the plan: window node
+    coords (BW, 3, K) int32, the key mask (BW, T) int32 (a relay slot,
+    valid when its window holds a node, ahead of the nodes when G = 1)
+    and pos_bnd."""
+    import torch
+
     from hotformerloc_torch.models.layers import rpe_pos_bnd
-    from hotformerloc_torch.ops import conv as plain
     from hotformerloc_torch.ops import window as ow
-    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    ctx = plan.level_ctx(d)
+    K = cfg.patch_size
+    xyz_w = ow.data_to_windows(ctx.xyz, K, D)             # (B, W, K, 3)
+    BW = xyz_w.shape[0] * xyz_w.shape[1]
+    xyz = xyz_w.permute(0, 1, 3, 2).reshape(BW, 3, K).to(
+        torch.int32).contiguous()
+    nmask = ow.window_key_mask(ctx.node_valid, K, D)
+    kmask = torch.cat([nmask.any(-1, keepdim=True), nmask], -1) \
+        if G else nmask
+    mask = kmask.reshape(BW, K + G).to(torch.int32).contiguous()
+    return xyz, mask, rpe_pos_bnd(K, D)
+
+
+def attn_fwd_rows(dev, name, cfg, plan, cases, rnd, bound):
+    """K1 at every window_attn case of ``cases`` on the plan's windows:
+    kernel vs plain version at fp32 and bf16, the CUDA-core body on the
+    same inputs where attn_body picks the tensor-core one, and CUDA-event
+    times of both bodies, the plain version and SDPA with the bias and key
+    mask materialised (a yardstick the package never calls)."""
+    import torch
+    import torch.nn.functional as F
+
     from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.rpe import rpe_bias_reference
+    rows = []
+    for label, d, C, H, D, G, per_fwd in cases:
+        xyz, mask, bnd = attn_windows(cfg, plan, d, D, G)
+        BW, T = mask.shape
+        table = rnd(3 * (2 * bnd + 1), H, scale=0.5).float()
+        qkv32 = [rnd(BW, T, C) for _ in range(3)]
+        row = {"case": label, "shape": [BW, T, C], "heads": H, "bnd": bnd,
+               "per_forward": per_fwd}
+        for dt, tdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (t.to(tdt) for t in qkv32)
+            args = (q, k, v, xyz, mask, table, H, bnd)
+            row[f"body_{dt}"] = kattn.attn_body(tdt, T, C, H, bnd)
+            out = kattn.window_attention(*args)
+            ref = kattn.window_attention_reference(*args)
+            row[f"err_{dt}"] = compare(out, ref, "window_attn", dt)
+            row[f"ms_{dt}"] = time_ms(lambda: kattn.window_attention(*args))
+            if row[f"body_{dt}"] == "tc":
+                # the CUDA-core body on the same inputs: before / after
+                cc = kattn.launch_fwd(*args, body="cc")
+                row[f"cc_err_{dt}"] = compare(cc, ref, "window_attn", dt)
+                row[f"cc_ms_{dt}"] = time_ms(
+                    lambda: kattn.launch_fwd(*args, body="cc"))
+            row[f"plain_ms_{dt}"] = time_ms(
+                lambda: kattn.window_attention_reference(*args))
+            # yardstick: SDPA with the bias and key mask materialised
+            hd = C // H
+            qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2)
+                          for t in (q, k, v))
+            bias = torch.zeros(BW, H, T, T, device=dev)
+            xyz_f = xyz.transpose(1, 2)[None]
+            bias[:, :, G:, G:] = rpe_bias_reference(table.t(), xyz_f,
+                                                    bnd)[0]
+            bias = bias + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
+            bias = bias.to(tdt)
+            row[f"library_ms_{dt}"] = time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=bias))
+            esz = q.element_size()
+            nbytes = (4 * BW * T * C * esz + xyz.numel() * 4
+                      + mask.numel() * 4 + table.numel() * 4)
+            flops = 4 * BW * T * T * C
+            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                nbytes, flops, dt)
+            del bias
+        rows.append(row)
+        emit({"phase": "kernel", "kernel": "window_attn", "config": name,
+              **row})
+    return rows
 
-    plan = build_model_plan(cfg, pts, pmask)
-    splan = build_model_plan(cfg, spts, pmask)
-    octree = plan.octree
-    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
-    rows = {"window_attn_bwd": [], "octree_dwconv_bwd": [],
-            "octree_conv_bwd": []}
 
-    def check(outs, refs, kinds, kernel, dt):
-        errs = []
-        for o, r, kind in zip(outs, refs, kinds):
-            if r is None:
-                continue
-            err = float((o.float() - r.float()).abs().max())
-            lim = TOL_BWD[dt][kind] * max(1.0, float(r.float().abs().max()))
-            if not (err <= lim and torch.isfinite(o.float()).all()):
-                raise AssertionError(f"{kernel} {dt}: max |kernel - plain| "
-                                     f"= {err} > {lim}")
-            errs.append(err)
-        return max(errs)
+def attn_bwd_rows(dev, name, cfg, plan, cases, rnd, bound):
+    """K2 at every window_attn case of ``cases`` (microbatch plan):
+    kernel vs plain at fp32 and bf16, CUDA-event times of the kernel,
+    without the table gradient (nodtab_ms), of the CUDA-core body where
+    the tensor-core one runs, of the plain version and of SDPA forward +
+    backward with a materialised bias that requires grad (a yardstick
+    that stops at dbias and does not fold it into the table)."""
+    import torch
+    import torch.nn.functional as F
 
-    for label, d, C, H, D, G, per_fwd in cases["window_attn"]:
-        ctx = plan.level_ctx(d)
-        K = cfg.patch_size
-        T = K + G
-        xyz_w = ow.data_to_windows(ctx.xyz, K, D)
-        BW = xyz_w.shape[0] * xyz_w.shape[1]
-        xyz = xyz_w.permute(0, 1, 3, 2).reshape(BW, 3, K).to(
-            torch.int32).contiguous()
-        nmask = ow.window_key_mask(ctx.node_valid, K, D)
-        kmask = torch.cat([nmask.any(-1, keepdim=True), nmask], -1) \
-            if G else nmask
-        mask = kmask.reshape(BW, T).to(torch.int32).contiguous()
-        bnd = rpe_pos_bnd(cfg.patch_size, D)
+    from hotformerloc_torch.ops.kernels import window_attn as kattn
+    from hotformerloc_torch.ops.rpe import rpe_bias_reference
+    rows = []
+    for label, d, C, H, D, G, per_fwd in cases:
+        xyz, mask, bnd = attn_windows(cfg, plan, d, D, G)
+        BW, T = mask.shape
         table = rnd(3 * (2 * bnd + 1), H, scale=0.5).float()
         t32 = [rnd(BW, T, C) for _ in range(4)]          # q, k, v, g
         row = {"case": label, "shape": [BW, T, C], "heads": H, "bnd": bnd,
                "per_step": per_fwd * ACCUM}
+        # the tensor-core plan as the launchers make it, which attn_body's
+        # shared-memory figure must equal
+        plan_tc = kattn.tc_plan(T, C, H, bnd, T - G)
+        if kattn.launcher_tc_plan(T, C, H, bnd, T - G) != plan_tc:
+            raise AssertionError(f"{label}: tc_plan {plan_tc} != the "
+                                 "launchers' plan")
+        row.update(zip(("heads_per_round", "tc_smem_fwd", "tc_smem_bwd"),
+                       plan_tc))
         hd = C // H
-        for dt, tdt in dtypes.items():
+        for dt, tdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             q, k, v, g = (t.to(tdt) for t in t32)
             args = (q, k, v, xyz, mask, table, g, H, bnd)
             row[f"body_{dt}"] = kattn.attn_body(tdt, T, C, H, bnd)
             out = kattn.window_attention_bwd(*args)
             ref = kattn.window_attention_bwd_reference(*args)
             kinds = ("act",) * 3 + ("weight",)
-            row[f"err_{dt}"] = check(out, ref, kinds, "window_attn_bwd", dt)
+            row[f"err_{dt}"] = check_bwd(out, ref, kinds, "window_attn_bwd",
+                                         dt)
             row[f"ms_{dt}"] = time_ms(
                 lambda: kattn.window_attention_bwd(*args))
             # without the table gradient: the histogram's share
@@ -445,15 +523,13 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
             if row[f"body_{dt}"] == "tc":
                 # the CUDA-core body on the same inputs: before / after
                 cc = kattn.window_attention_bwd(*args, body="cc")
-                row[f"cc_err_{dt}"] = check(cc, ref, kinds,
-                                            "window_attn_bwd (cc)", dt)
+                row[f"cc_err_{dt}"] = check_bwd(cc, ref, kinds,
+                                                "window_attn_bwd (cc)", dt)
                 row[f"cc_ms_{dt}"] = time_ms(
                     lambda: kattn.window_attention_bwd(*args, body="cc"))
                 del cc
             row[f"plain_ms_{dt}"] = time_ms(
                 lambda: kattn.window_attention_bwd_reference(*args))
-            # yardstick: SDPA forward + backward, bias materialised and
-            # differentiated (it stops at dbias: no fold into the table)
             qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2).detach()
                           .requires_grad_() for t in (q, k, v))
             gh = g.reshape(BW, T, H, hd).transpose(1, 2)
@@ -474,8 +550,223 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
             row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
                 nbytes, 10 * BW * T * T * C, dt)
             del bias, qh, kh, vh, out, ref
-        rows["window_attn_bwd"].append(row)
-        emit({"phase": "kernel_bwd", "kernel": "window_attn_bwd", **row})
+        rows.append(row)
+        emit({"phase": "kernel_bwd", "kernel": "window_attn_bwd",
+              "config": name, **row})
+    return rows
+
+
+def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
+    """The serving slice of ``cfg`` with seeded random weights: embed the
+    batch through make_embed_fn in bf16 and fp32 and on the plain path at
+    fp32. The launch counters, zeroed just before the bf16 run and read
+    just after, must show the shape table's launches per forward (which
+    must equal ``per_forward``), every K1 launch and every K5 launch that
+    conv_body assigns to it on the tensor-core bodies (none at fp32), and
+    no call of F.conv3d; descriptors must be finite and unit-norm; the
+    fp32 kernel descriptors
+    must match the plain path (cos >= 0.9999, max abs <= 1e-4). Retrieval
+    recall@1 of the noisy copies against the originals is printed for
+    information (the weights are random), with bf16 ms per batch (median
+    of 5) and submaps/s. The batch must not overflow the octree. With
+    ``spts`` the same checks and timing on that batch too (surf_*; its
+    overflow, the same on every path, is printed). Returns (launches per
+    bf16 forward, numbers)."""
+    from hotformerloc_torch.evaluation.embed import make_embed_fn
+    from hotformerloc_torch.evaluation.evaluate import retrieval_topk
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.models.layers import rpe_pos_bnd
+    from hotformerloc_torch.octree.build import build_batched_octree
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    from hotformerloc_torch.ops.kernels import window_attn as kattn
+    from hotformerloc_torch.ops.plan import build_plan
+
+    want = {k: sum(c[-1] for c in cs) for k, cs in cases.items()}
+    if want != per_forward:
+        raise AssertionError(f"main-path shape table is off: {want}")
+    not_tc = [c[0] for c in cases["window_attn"] if kattn.attn_body(
+        torch.bfloat16, cfg.patch_size + c[5], c[2], c[3],
+        rpe_pos_bnd(cfg.patch_size, c[4])) != "tc"]
+    if not_tc:
+        raise AssertionError(f"bf16 K1 would leave the tensor-core body at "
+                             f"{not_tc}")
+    want = {k: want.get(k, 0) for k in kernels.LAUNCHES}   # no backward
+    want_fp32 = dict(want)
+    want["window_attn_tc"] = want["window_attn"]
+    want["octree_conv_tc"] = sum(
+        c[-1] for c in cases["octree_conv"]
+        if kconv.conv_body(torch.bfloat16, c[2], c[3]) == "tc")
+
+    model = HOTFormerLoc(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    embed_bf16 = make_embed_fn(model, torch.bfloat16)
+    embed_fp32 = make_embed_fn(model, torch.float32)
+    plain_model = HOTFormerLoc(cfg, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+    plain_model.set_use_kernels(False)
+    embed_plain = make_embed_fn(plain_model, torch.float32)
+    out = {"batch": len(pts)}
+    for tag, p in (("", pts), ("surf_", spts)):
+        if p is None:
+            continue
+        kernels.reset_launches()
+        with CountConv3d() as c3:
+            out_bf16 = embed_bf16(p, pmask)
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        if c3.calls:
+            raise AssertionError(f"the bf16 embed called F.conv3d "
+                                 f"{c3.calls} times: a CPE left K3")
+        if launches != want:
+            raise AssertionError(f"launches {launches} != expected {want}")
+        kernels.reset_launches()
+        out_fp32 = embed_fp32(p, pmask)
+        if dict(kernels.LAUNCHES) != want_fp32:
+            raise AssertionError(f"fp32 launches {kernels.LAUNCHES}")
+        kernels.reset_launches()
+        out_plain = embed_plain(p, pmask)
+        if any(kernels.LAUNCHES.values()):
+            raise AssertionError(f"plain path launched {kernels.LAUNCHES}")
+        overflow = {int(o["octree_overflow"]) for o in
+                    (out_bf16, out_fp32, out_plain)}
+        if len(overflow) != 1 or (not tag and overflow != {0}):
+            raise AssertionError(f"{tag}octree overflow {overflow} (the "
+                                 "batch must fit, the surface-like one "
+                                 "alike on every path)")
+        for dt, o in (("bf16", out_bf16), ("fp32", out_fp32),
+                      ("plain_fp32", out_plain)):
+            gdesc = o["global"]
+            if gdesc.shape != (len(p), cfg.output_dim):
+                raise AssertionError(f"{tag}{dt}: descriptor shape "
+                                     f"{gdesc.shape}")
+            if not torch.isfinite(gdesc).all():
+                raise AssertionError(f"{tag}{dt}: non-finite descriptors")
+            norm_err = float((gdesc.norm(dim=1) - 1).abs().max())
+            if norm_err > 1e-4:
+                raise AssertionError(f"{tag}{dt}: descriptors not unit norm "
+                                     f"({norm_err})")
+            if int(o["band_overflow"]):
+                raise AssertionError(f"{tag}{dt}: band overflow")
+        gk, gp = out_fp32["global"], out_plain["global"]
+        cos = float((gk * gp).sum(1).min())
+        maxabs = float((gk - gp).abs().max())
+        if not (cos >= 0.9999 and maxabs <= 1e-4):
+            raise AssertionError(f"{tag}fp32 kernel vs plain descriptors: "
+                                 f"cos {cos}, max abs {maxabs}")
+        desc = out_bf16["global"].cpu().numpy()
+        _, idx = retrieval_topk(desc[1::2], desc[0::2], k=1)
+
+        def run():
+            embed_bf16(p, pmask)
+            torch.cuda.synchronize()
+
+        run()
+        host_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(host_ms)
+        out.update({
+            f"{tag}octree_overflow": overflow.pop(),
+            f"{tag}fp32_kernel_vs_plain_min_cos": cos,
+            f"{tag}fp32_kernel_vs_plain_max_abs": maxabs,
+            f"{tag}bf16_vs_fp32_plain_min_cos": float(
+                (out_bf16["global"] * gp).sum(1).min()),
+            f"{tag}recall_at_1_random_weights": float(
+                np.mean(idx[:, 0] == np.arange(len(p) // 2))),
+            f"{tag}embed_bf16_ms_per_batch": ms,
+            f"{tag}embed_bf16_ms_all": host_ms,
+            f"{tag}submaps_per_s_bf16": len(p) / (ms / 1e3)})
+        if not tag:
+            out["launches_per_forward"] = launches
+
+    def octree_and_plan():           # as the serving forward builds it
+        with torch.inference_mode():
+            oc = build_batched_octree(pts, pmask, cfg.octree_depth,
+                                      cfg.min_depth, cfg.resolve_capacities())
+            build_plan(oc, tap_lists=False)
+        torch.cuda.synchronize()
+
+    octree_and_plan()
+    plan_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        octree_and_plan()
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(octree_plan_ms=statistics.median(plan_ms),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del model, plain_model, embed_bf16, embed_fp32, embed_plain
+    torch.cuda.empty_cache()
+    return out["launches_per_forward"], out
+
+
+class CountConv3d:
+    """Counts calls of torch.nn.functional.conv3d inside the block (the
+    dense-grid CPE's only cuDNN call): the main path must make none."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self.F, self.real, self.calls = F, F.conv3d, 0
+
+        def counting(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        F.conv3d = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.F.conv3d = self.real
+
+
+def path_cases(cfg):
+    """Every kernel shape of one forward of ``cfg``, with its launches
+    per forward: window_attn (label, depth, C, H, dilation, G, n),
+    octree_dwconv (label, depth, C, n), octree_conv (label, depth, C, O,
+    n). The stem's first conv (C = 3 input features) needs no dx."""
+    nb_octf, nb_hotf = cfg.num_blocks[0], cfg.num_blocks[-1]
+    octf_c, octf_h = cfg.channels[0], cfg.num_heads[0]
+    _, pyr_c = cfg.stage_channels()
+    _, pyr_h = cfg.stage_heads()
+    td = cfg.transformer_depth
+    attn = [("octf_dil1", td, octf_c, octf_h, 1, 0, (nb_octf + 1) // 2),
+            ("octf_dil%d" % cfg.dilation, td, octf_c, octf_h,
+             cfg.dilation, 0, nb_octf // 2)]
+    attn += [(f"hosa_d{d}", d, pyr_c[j], pyr_h[j], 1, 1, nb_hotf)
+             for j, d in enumerate(cfg.pyramid_depths)]
+    dw = [(f"cpe_d{td}", td, octf_c, nb_octf)]
+    dw += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
+           for j, d in enumerate(cfg.pyramid_depths)]
+    if cfg.adape_mode is None:         # the relay-token init's CPE
+        dw += [(f"rt_init_cpe_d{d}", d, pyr_c[j], 1)
+               for j, d in enumerate(cfg.pyramid_depths)]
+    chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
+    conv = [(f"stem_conv{i}_d{cfg.octree_depth - i}", cfg.octree_depth - i,
+             3 if i == 0 else chans[i], chans[i], 1)
+            for i in range(cfg.stem_down)]
+    conv.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
+    return {"window_attn": attn, "octree_dwconv": dw, "octree_conv": conv}
+
+
+def bwd_kernel_phase(torch, dev, cfg, pts, spts, pmask, cases, bound, rnd,
+                     device_jobs):
+    """K2, K4, K6 against their plain versions and timed, at every shape
+    of the train path (microbatch ``pts``; K4 and K6 also on the
+    surface-like microbatch ``spts``); rows per kernel name. K4's and K6's
+    device-time calls are appended to ``device_jobs``."""
+    from hotformerloc_torch.models.hotformerloc import build_model_plan
+    from hotformerloc_torch.ops import conv as plain
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+
+    plan = build_model_plan(cfg, pts, pmask)
+    splan = build_model_plan(cfg, spts, pmask)
+    octree = plan.octree
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    rows = {"window_attn_bwd": attn_bwd_rows(dev, "oxford_config", cfg, plan,
+                                             cases["window_attn"], rnd,
+                                             bound),
+            "octree_dwconv_bwd": [], "octree_conv_bwd": []}
 
     plans = (("", plan), ("surf_", splan))
     for label, d, C, per_fwd in cases["octree_dwconv"]:
@@ -497,8 +788,8 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
                 def k4(x=x, neigh=neigh, w=w, dy=dy, tl=tl):
                     return kconv.octree_dwconv_bwd(x, neigh, w, dy, taps=tl)
                 ref = plain.octree_dwconv_bwd(x, neigh, w, dy)
-                row[f"{tag}err_{dt}"] = check(k4(), ref, ("act", "weight"),
-                                              "octree_dwconv_bwd", dt)
+                row[f"{tag}err_{dt}"] = check_bwd(k4(), ref, ("act", "weight"),
+                                                  "octree_dwconv_bwd", dt)
                 row[f"{tag}ms_{dt}"] = time_ms(k4)
                 if dt == "bf16" and not tag:       # device time, taken last
                     device_jobs.append((row, "device_ms_bf16", k4))
@@ -537,13 +828,13 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
                     return kconv.octree_conv_bwd(*args, taps=tl, body=body)
                 ref = plain.octree_conv_bwd(*args)
                 kinds = ("act", "weight", "weight")
-                row[f"{tag}err_{dt}"] = check(k6(), ref, kinds,
-                                              "octree_conv_bwd", dt)
+                row[f"{tag}err_{dt}"] = check_bwd(k6(), ref, kinds,
+                                                  "octree_conv_bwd", dt)
                 row[f"{tag}ms_{dt}"] = time_ms(k6)
                 row[f"{tag}cc_ms_{dt}"] = row[f"{tag}ms_{dt}"]
                 if body == "tc":
                     # the CUDA-core bodies on the same inputs: before / after
-                    row[f"{tag}cc_err_{dt}"] = check(
+                    row[f"{tag}cc_err_{dt}"] = check_bwd(
                         k6("cc"), ref, kinds, "octree_conv_bwd (cc)", dt)
                     row[f"{tag}cc_ms_{dt}"] = time_ms(lambda: k6("cc"))
                 if dt == "bf16" and not tag:       # device times, taken last
@@ -566,10 +857,21 @@ def bwd_kernel_phase(torch, F, dev, cfg, pts, spts, pmask, cases, bound,
     return rows
 
 
-def train_phase(torch, dev, cfg, pts, pmask, cases):
-    """The multistage train step: fp32 kernel vs plain gradients, then
-    bf16 launch counts and timing. Returns (launches of one bf16 step,
-    the phase's numbers)."""
+# launches of one bf16 train step of batch 32 (4 microbatches of 8) at
+# Oxford and CS-Wild-Places: K1/K3 34 and K5 3 per forward, twice per
+# microbatch (stages 1 and 3), their backward once
+STEP_LAUNCHES = {"window_attn": 272, "octree_dwconv": 272, "octree_conv": 24,
+                 "window_attn_bwd": 136, "octree_dwconv_bwd": 136,
+                 "octree_conv_bwd": 12}
+
+
+def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
+                timed=10):
+    """The multistage train step (batch 32 as 4 microbatches of 8): fp32
+    kernel vs plain gradients, then bf16 launch counts (the shape table's,
+    which must equal ``expect``, STEP_LAUNCHES by default) and ``timed``
+    timed steps. Returns (launches of one bf16 step, the phase's
+    numbers)."""
     from hotformerloc_torch.losses.losses import make_loss
     from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
                                                         build_model_plan)
@@ -598,7 +900,7 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
         return m, make_train_step(m, opt, loss_fn, StepConfig(
             accum_steps=ACCUM, check_recompute=True))
 
-    out = {"config": "oxford_config", "batch": BATCH, "accum_steps": ACCUM,
+    out = {"config": name, "batch": BATCH, "accum_steps": ACCUM,
            "drop_path": cfg.drop_path, "grad_checkpoint": False}
     # fp32, TF32 off (set in main): kernel path against plain path
     grads = {}
@@ -653,9 +955,7 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
         per_fwd = sum(c[-1] for c in cs)
         want[k] = per_fwd * ACCUM * 2            # stage 1 + stage 3
         want[k + "_bwd"] = per_fwd * ACCUM
-    if want != {"window_attn": 272, "octree_dwconv": 272, "octree_conv": 24,
-                "window_attn_bwd": 136, "octree_dwconv_bwd": 136,
-                "octree_conv_bwd": 12}:
+    if want != (expect or STEP_LAUNCHES):
         raise AssertionError(f"train-path shape table is off: {want}")
     # every bf16 K1 / K2 launch of the step takes the tensor-core bodies,
     # and every K5 / K6 launch that conv_body assigns to them
@@ -682,7 +982,7 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
         warm.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
-    for i in range(10):
+    for i in range(timed):
         t0 = time.perf_counter()
         stats = step(batch, 3 + i)
         torch.cuda.synchronize()
@@ -710,6 +1010,8 @@ def train_phase(torch, dev, cfg, pts, pmask, cases):
                bf16_losses=losses,
                octree_plan_ms_per_step=statistics.median(plan_ms),
                bf16_peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del m, step
+    torch.cuda.empty_cache()
     return launches, out
 
 
@@ -768,6 +1070,73 @@ def write_entry_dataset(root, n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL,
             with open(os.path.join(
                     root, f"{split}_evaluation_{kind}.pickle"), "wb") as f:
                 pickle.dump(s, f)
+
+
+WILD_LOCATIONS = {"CSWildPlaces": ("Karawatha", "Venman", "QCAT", "Samford"),
+                  "WildPlaces": ("Karawatha", "Venman")}
+
+
+def write_wild_dataset(root, dataset, train_file, val_file=None,
+                       n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL, seed=7,
+                       points=4096):
+    """A (CS-)Wild-Places-format dataset under ``root``, ``dataset``
+    "CSWildPlaces" or "WildPlaces": binary .pcd submaps (float32) of
+    surface-like clouds; ``train_file``, a training-queries pickle of
+    n_locs places x 2 passes (each pass the place's cloud plus N(0, 0.01)
+    noise; a cloud's positive is its place's other pass); ``val_file``
+    (when given), the same of n_eval other places; and per location of
+    the dataset the evaluation database and query pickles under the
+    names evaluation/evaluate.py's get_query_database_splits gives, each
+    2 runs of the same n_eval places (a query's true neighbour is its
+    place in the other run). Returns the location names."""
+    import pickle
+
+    from hotformerloc_torch.data.loaders import write_pcd
+    from hotformerloc_torch.data.tuples import TrainingTuple
+    from hotformerloc_torch.evaluation.evaluate import \
+        get_query_database_splits
+    rng = np.random.default_rng(seed)
+
+    def write(rel, base):
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_pcd(path, base + rng.normal(0, 0.01, base.shape))
+
+    def tuples(name, n):
+        queries = {}
+        folder = name.rsplit(".", 1)[0]
+        for loc in range(n):
+            base = surface_cloud(rng, points)
+            for k in range(2):
+                i, sib = 2 * loc + k, 2 * loc + 1 - k
+                write(f"{folder}/{i:04d}.pcd", base)
+                queries[i] = TrainingTuple(
+                    i, i, f"{folder}/{i:04d}.pcd", np.array([sib]),
+                    np.array(sorted([i, sib])), np.array([100.0 * loc, 0.0]))
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(queries, f)
+
+    tuples(train_file, n_locs)
+    if val_file:
+        tuples(val_file, n_eval)
+    dbs, qs = get_query_database_splits(dataset)
+    for loc, dbf, qf in zip(WILD_LOCATIONS[dataset], dbs, qs):
+        bases = [surface_cloud(rng, points) for _ in range(n_eval)]
+        sets = {dbf: [], qf: []}
+        for run in range(2):
+            db, q = {}, {}
+            for j, base in enumerate(bases):
+                rel = f"{loc}/run{run}_{j:03d}.pcd"
+                write(rel, base)
+                db[j] = {"query": rel, "northing": 100.0 * j,
+                         "easting": 0.0}
+                q[j] = {**db[j], 1 - run: [j]}
+            sets[dbf].append(db)
+            sets[qf].append(q)
+        for name, s in sets.items():
+            with open(os.path.join(root, name), "wb") as f:
+                pickle.dump(s, f)
+    return WILD_LOCATIONS[dataset]
 
 
 def numpy_recall(db, qv, query_sets, m, n, k=25):
@@ -1222,6 +1591,221 @@ def dp_phase(torch, smi):
     return res_dp["launches"], [x["launches"] for x in ranks], out
 
 
+def cylindrical_batch(torch, dev, pts):
+    """The port's data path for a cylindrical model (data/pipeline.py):
+    each cloud clipped to the unit box and xy-radius, converted to scaled
+    (rho, phi, z) by CylindricalCoordinates and packed into (B, 4096, 3)
+    points with a (B, 4096) mask."""
+    from hotformerloc_torch.data.augmentation import CylindricalCoordinates
+    from hotformerloc_torch.data.pipeline import clip_to_unit_box, pack_clouds
+    conv = CylindricalCoordinates()
+    p, m = pack_clouds([conv(clip_to_unit_box(c, True)) for c in pts],
+                       pts.shape[1])
+    return torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
+
+
+CSWP_TRAIN = "training_queries_CSWildPlaces_baseline_v2.pickle"
+CSWP_VAL = "test_queries_CSWildPlaces_v2.pickle"
+
+
+def cswp_entry(torch, dev, smi):
+    """The train CLI on configs/cs-wild-places.txt with
+    configs/cs-wild-places_model.txt unchanged (full width and depth,
+    grad_checkpoint on, MESA from the first epoch), cut to batch 256 as 2
+    microbatches of the shipped 128, 1 epoch, eval_freq and save_freq 1,
+    on a synthetic dataset under the CSWildPlaces names (write_wild_dataset:
+    ENTRY_LOCS places x 2 passes, a val_file of ENTRY_EVAL places, four
+    locations of 2 runs x ENTRY_EVAL places); then pnv_evaluate on the
+    final checkpoint, whose average must equal the in-training
+    evaluation's. Returns (the train run's launches, the numbers)."""
+    import configparser
+    import shutil
+
+    from hotformerloc_torch.evaluation import pnv_evaluate
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.training import train as train_cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "cswp_entry")
+    shutil.rmtree(work, ignore_errors=True)
+    data = os.path.join(work, "data")
+    t0 = time.time()
+    locs = write_wild_dataset(data, "CSWildPlaces", CSWP_TRAIN, CSWP_VAL)
+    out = {"card": smi, "dataset_seconds": time.time() - t0,
+           "cuts": "batch_size 2048 -> 256 (2 x batch_split_size 128), "
+                   "epochs 100 -> 1, eval_freq 5 -> 1, save_freq 10 -> 1, "
+                   "synthetic data"}
+    cp = configparser.ConfigParser()
+    cp.read(os.path.join(here, "configs", "cs-wild-places.txt"))
+    cp["DEFAULT"]["dataset_folder"] = data
+    cp["TRAIN"].update(batch_size="256", batch_split_size="128", epochs="1",
+                       eval_freq="1", save_freq="1")
+    if (cp["TRAIN"]["train_file"], cp["TRAIN"]["val_file"]) != (CSWP_TRAIN,
+                                                               CSWP_VAL):
+        raise AssertionError("configs/cs-wild-places.txt names other files")
+    cfg_path = os.path.join(work, "cs-wild-places_entry.txt")
+    with open(cfg_path, "w") as f:
+        cp.write(f)
+    model_cfg = os.path.join(here, "configs", "cs-wild-places_model.txt")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.time()
+    tr = train_cli.main(["--config", cfg_path, "--model_config", model_cfg,
+                         "--weights_dir", os.path.join(work, "weights"),
+                         "--model_name", "cswp"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out["train_cli_seconds"] = time.time() - t0
+    out["train_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if _missing(launches):
+        raise AssertionError(f"the CS-Wild-Places run launched no "
+                             f"{_missing(launches)}")
+    cfg, p = tr.cfg, tr.params
+    if not (cfg.patch_size == 64 and cfg.octree_depth == 7
+            and cfg.grad_checkpoint and cfg.adape_mode == "cov"
+            and tr.model.dtype == torch.bfloat16
+            and tr.train_step.cfg.accum_steps == 2 and tr.use_ema
+            and p.normalize_points and p.skip_same_run
+            and p.dataset_name == "CSWildPlaces"
+            and tr.val_loader is not None):
+        raise AssertionError(f"CS-Wild-Places run config off: {cfg}, {p}")
+    with open(os.path.join(tr.weights_dir, "cswp_log.jsonl")) as f:
+        log = [json.loads(ln) for ln in f]
+    by = {ph: [r for r in log if r["phase"] == ph]
+          for ph in ("train", "val", "eval")}
+    if [len(v) for v in by.values()] != [1, 1, 1] or not np.isfinite(
+            [by["train"][0]["loss"], by["val"][0]["val_loss"]]).all():
+        raise AssertionError(f"CS-Wild-Places train log off: {log}")
+    steps = tr.step_log
+    if [st["size"] for st in steps] != [256, 64]:
+        raise AssertionError(f"CS-Wild-Places batches {steps}")
+    for tag in ("e1", "latest", "final"):
+        if not os.path.exists(tr.ckpt_path(tag)):
+            raise AssertionError(f"no checkpoint {tr.ckpt_path(tag)}")
+    final = tr.ckpt_path("final")
+    out.update(launches=launches, loss=by["train"][0]["loss"],
+               val_loss=by["val"][0]["val_loss"],
+               epoch_seconds=by["train"][0]["time"],
+               steps=[{k: st[k] for k in ("size", "step_s", "wait_s")}
+                      for st in steps],
+               eval_in_training={k: by["eval"][0][k]
+                                 for k in ("avg_AR1", "avg_AR1p", "avg_MRR")})
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.time()
+        stats = pnv_evaluate.main(["--config", cfg_path, "--model_config",
+                                   model_cfg, "--weights", final])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    out["pnv_evaluate_seconds"] = time.time() - t0
+    out["eval_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if set(stats) != set(locs) | {"average"}:
+        raise AssertionError(f"pnv_evaluate locations {sorted(stats)}")
+    avg = stats["average"]
+    got = {"avg_AR1": float(avg["ave_recall"][0]),
+           "avg_AR1p": avg["ave_one_percent_recall"],
+           "avg_MRR": avg["ave_mrr"]}
+    if got != out["eval_in_training"]:
+        raise AssertionError(f"pnv_evaluate {got} != the in-training "
+                             f"evaluation {out['eval_in_training']}")
+    out["pnv_evaluate"] = {loc: {"AR1": float(st["ave_recall"][0]),
+                                 "AR1p": st["ave_one_percent_recall"],
+                                 "MRR": st["ave_mrr"]}
+                           for loc, st in stats.items()}
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, out
+
+
+def configs_phase(torch, dev, smi, rnd):
+    """The patch-64 and no-ADaPE configurations at full width:
+    (a) cs_wild_places_config serving (serve_check on the uniform batch
+    and the surface-like one), with K1 at its forward's shapes (batch 32)
+    and K2 at its train step's (microbatch 8) held against their plain
+    versions and timed (attn_fwd_rows, attn_bwd_rows); (b) its train step
+    (train_phase, 5 timed steps); (c) configs/wild-places_model.txt
+    (no ADaPE: the relay-token CPE runs K3 at each pyramid level, 37 per
+    forward) on the uniform batch through the cylindrical conversion:
+    serve_check and train_phase (K3 296 and K4 148 per bf16 step, 5
+    timed steps); (d) cswp_entry. Returns (K1 rows, K2 rows, launches per run, the
+    phase's numbers)."""
+    from hotformerloc_torch.config.params import parse_model_config
+    from hotformerloc_torch.models.config import cs_wild_places_config
+    from hotformerloc_torch.models.hotformerloc import build_model_plan
+    from hotformerloc_torch.utils.profiling import bound_ms
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out, launches = {"card": smi}, {}
+    pts = torch.from_numpy(clouds()).to(dev)
+    pmask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    spts = torch.from_numpy(surface_clouds()).to(dev)
+
+    # -- (a) CS-Wild-Places serving, K1 / K2 at its shapes ---------------
+    t0 = time.time()
+    cfg = cs_wild_places_config()
+    cases = path_cases(cfg)
+    name = "cs_wild_places_config"
+    plan = build_model_plan(cfg, pts, pmask)
+    k1 = attn_fwd_rows(dev, name, cfg, plan, cases["window_attn"], rnd,
+                       bound_ms)
+    del plan
+    mplan = build_model_plan(cfg, pts[:MICRO], pmask[:MICRO])
+    k2 = attn_bwd_rows(dev, name, cfg, mplan, cases["window_attn"], rnd,
+                       bound_ms)
+    del mplan
+    torch.cuda.empty_cache()
+    launches["cs_wild_places_forward"], out["a_cs_wild_places_serving"] = \
+        serve_check(torch, cfg, pts, pmask, cases,
+                    {"window_attn": 34, "octree_dwconv": 34,
+                     "octree_conv": 3}, spts)
+    out["a_cs_wild_places_serving"]["seconds"] = time.time() - t0
+
+    # -- (b) CS-Wild-Places train step -----------------------------------
+    t0 = time.time()
+    launches["cs_wild_places_step"], out["b_cs_wild_places_train"] = \
+        train_phase(torch, dev, name,
+                    dataclasses.replace(cfg, grad_checkpoint=False), pts,
+                    pmask, cases, timed=5)
+    out["b_cs_wild_places_train"]["seconds"] = time.time() - t0
+
+    # -- (c) Wild-Places: no ADaPE, cylindrical coordinates ----------------
+    t0 = time.time()
+    wfile = os.path.join(here, "configs", "wild-places_model.txt")
+    wparams = parse_model_config(wfile, octree_depth=7)
+    wcfg = dataclasses.replace(wparams.config, grad_checkpoint=False)
+    if wcfg.adape_mode is not None or wparams.coordinates != "cylindrical":
+        raise AssertionError(f"{wfile}: {wparams}")
+    wpts, wmask = cylindrical_batch(torch, dev, clouds())
+    wcases = path_cases(wcfg)
+    launches["wild_places_forward"], serve = serve_check(
+        torch, wcfg, wpts, wmask, wcases,
+        {"window_attn": 34, "octree_dwconv": 37, "octree_conv": 3})
+    launches["wild_places_step"], train = train_phase(
+        torch, dev, "wild-places_model.txt", wcfg, wpts, wmask, wcases,
+        dict(STEP_LAUNCHES, octree_dwconv=296, octree_dwconv_bwd=148),
+        timed=5)
+    out["c_wild_places"] = {
+        "config": "configs/wild-places_model.txt (octree_depth 7)",
+        "coordinates": wparams.coordinates,
+        "valid_points_per_cloud": [int(wmask.sum(1).min()),
+                                   int(wmask.sum(1).max())],
+        **serve, "train": train, "seconds": time.time() - t0}
+    torch.cuda.empty_cache()
+
+    # -- (d) the train and evaluate CLIs on CS-Wild-Places ----------------
+    t0 = time.time()
+    launches["cs_wild_places_entry"], out["d_cs_wild_places_entry"] = \
+        cswp_entry(torch, dev, smi)
+    out["d_cs_wild_places_entry"]["seconds"] = time.time() - t0
+    return k1, k2, launches, out
+
+
 def dp_retrieval_worker(cdir):
     """One rank of the dp phase's (c), over gloo on card 0: the sharded
     retrieval_topk of cdir/in.npz, timed after a warm-up; rank 0 writes
@@ -1378,21 +1962,13 @@ def main():
         print(f"chip_smoke: hotformerloc_torch not found ({e})",
               file=sys.stderr)
         return 1
-    import torch.nn.functional as F
 
-    from hotformerloc_torch.evaluation.embed import make_embed_fn
-    from hotformerloc_torch.evaluation.evaluate import retrieval_topk
     from hotformerloc_torch.models.config import oxford_config
-    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
-    from hotformerloc_torch.models.layers import rpe_pos_bnd
     from hotformerloc_torch.octree.build import build_batched_octree
     from hotformerloc_torch.ops import conv as plain
-    from hotformerloc_torch.ops import window as ow
     from hotformerloc_torch.ops.kernels import build
     from hotformerloc_torch.ops.kernels import octree_conv as kconv
-    from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.plan import build_plan, build_tap_lists
-    from hotformerloc_torch.ops.rpe import rpe_bias_reference
     from hotformerloc_torch.utils.profiling import bound_ms, device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1451,86 +2027,20 @@ def main():
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(dev)
 
-    P = cfg.patch_size
     cases = path_cases(cfg)
     attn_cases, dw_cases, conv_cases = (cases["window_attn"],
                                         cases["octree_dwconv"],
                                         cases["octree_conv"])
 
     bound = bound_ms
-    def compare(out, ref, kernel, dt):
-        err = float((out.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        lim = (TOL["fp32"][kernel] if dt == "fp32"
-               else TOL["bf16_rel"] * max(1.0, scale))
-        if not (err <= lim and torch.isfinite(out.float()).all()):
-            raise AssertionError(f"{kernel} {dt}: max |kernel - plain| = "
-                                 f"{err} > {lim}")
-        return err
-
     dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
-    results = {"window_attn": [], "octree_dwconv": [], "octree_conv": []}
     # (row, key, call) of the K4/K5/K6 device times under torch.profiler,
     # taken after every other phase (call None: the key's body is the one
     # device_ms_bf16 already times)
     device_jobs = []
-
-    for label, d, C, H, D, G, per_fwd in attn_cases:
-        ctx = plan.level_ctx(d)
-        K = P
-        T = K + G
-        xyz_w = ow.data_to_windows(ctx.xyz, K, D)           # (B, W, K, 3)
-        B, W = xyz_w.shape[:2]
-        BW = B * W
-        xyz = xyz_w.permute(0, 1, 3, 2).reshape(BW, 3, K).to(
-            torch.int32).contiguous()
-        nmask = ow.window_key_mask(ctx.node_valid, K, D)
-        kmask = torch.cat([nmask.any(-1, keepdim=True), nmask], -1) \
-            if G else nmask
-        mask = kmask.reshape(BW, T).to(torch.int32).contiguous()
-        bnd = rpe_pos_bnd(P, D)
-        table = rnd(3 * (2 * bnd + 1), H, scale=0.5).float()
-        qkv32 = [rnd(BW, T, C) for _ in range(3)]
-        row = {"case": label, "shape": [BW, T, C], "heads": H, "bnd": bnd,
-               "per_forward": per_fwd}
-        for dt, tdt in dtypes.items():
-            q, k, v = (t.to(tdt) for t in qkv32)
-            args = (q, k, v, xyz, mask, table, H, bnd)
-            row[f"body_{dt}"] = kattn.attn_body(tdt, T, C, H, bnd)
-            out = kattn.window_attention(*args)
-            ref = kattn.window_attention_reference(*args)
-            row[f"err_{dt}"] = compare(out, ref, "window_attn", dt)
-            row[f"ms_{dt}"] = time_ms(lambda: kattn.window_attention(*args))
-            if row[f"body_{dt}"] == "tc":
-                # the CUDA-core body on the same inputs: before / after
-                cc = kattn.launch_fwd(*args, body="cc")
-                row[f"cc_err_{dt}"] = compare(cc, ref, "window_attn", dt)
-                row[f"cc_ms_{dt}"] = time_ms(
-                    lambda: kattn.launch_fwd(*args, body="cc"))
-            row[f"plain_ms_{dt}"] = time_ms(
-                lambda: kattn.window_attention_reference(*args))
-            # yardstick: SDPA with the bias and key mask materialised
-            hd = C // H
-            qh, kh, vh = (t.reshape(BW, T, H, hd).transpose(1, 2)
-                          for t in (q, k, v))
-            bias = torch.zeros(BW, H, T, T, device=dev)
-            xyz_f = xyz.transpose(1, 2)[None]
-            bias[:, :, G:, G:] = rpe_bias_reference(table.t(), xyz_f,
-                                                    bnd)[0]
-            bias = bias + torch.where(mask > 0, 0.0, -1e9)[:, None, None, :]
-            bias = bias.to(tdt)
-            row[f"library_ms_{dt}"] = time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                       attn_mask=bias))
-            esz = q.element_size()
-            nbytes = (4 * BW * T * C * esz + xyz.numel() * 4
-                      + mask.numel() * 4 + table.numel() * 4)
-            flops = 4 * BW * T * T * C
-            row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
-                nbytes, flops, dt)
-            del bias
-        results["window_attn"].append(row)
-        emit({"phase": "kernel", "kernel": "window_attn", **row})
+    results = {"window_attn": attn_fwd_rows(dev, "oxford_config", cfg, plan,
+                                            attn_cases, rnd, bound),
+               "octree_dwconv": [], "octree_conv": []}
 
     for label, d, C, per_fwd in dw_cases:
         x32 = rnd(BATCH, plan.neighs[octree.level(d)].shape[1], C)
@@ -1628,120 +2138,16 @@ def main():
 
     # ---- 4. the slice: embed 32 clouds ---------------------------------
     t_phase = time.time()
-    model = HOTFormerLoc(cfg, device="cuda",
-                         generator=torch.Generator().manual_seed(0))
-    embed_bf16 = make_embed_fn(model, torch.bfloat16)
-    embed_fp32 = make_embed_fn(model, torch.float32)
-    plain_model = HOTFormerLoc(cfg, device="cuda",
-                               generator=torch.Generator().manual_seed(0))
-    plain_model.set_use_kernels(False)
-    embed_plain = make_embed_fn(plain_model, torch.float32)
-
-    kernels.reset_launches()
-    with CountConv3d() as c3:
-        out_bf16 = embed_bf16(pts, pmask)
-        torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    if c3.calls:
-        raise AssertionError(f"the bf16 embed called F.conv3d {c3.calls} "
-                             "times: a CPE left K3")
-    want = {k: sum(r["per_forward"] for r in rows)
-            for k, rows in results.items()}
-    if want != {"window_attn": 34, "octree_dwconv": 34, "octree_conv": 3}:
-        raise AssertionError(f"main-path shape table is off: {want}")
-    want = {k: want.get(k, 0) for k in kernels.LAUNCHES}   # no backward
-    # every bf16 K1 launch takes the tensor-core body, and every K5 launch
-    # that conv_body assigns to it (all but the stem's first conv, C = 3);
-    # no fp32 one does
-    want_fp32 = dict(want)
-    want["window_attn_tc"] = want["window_attn"]
-    want["octree_conv_tc"] = sum(
-        r["per_forward"] for r in results["octree_conv"]
-        if r["body_bf16"] == "tc")
-    if launches != want:
-        raise AssertionError(f"launches {launches} != expected {want}")
-
-    kernels.reset_launches()
-    out_fp32 = embed_fp32(pts, pmask)
-    if dict(kernels.LAUNCHES) != want_fp32:
-        raise AssertionError(f"fp32 launches {kernels.LAUNCHES}")
-    kernels.reset_launches()
-    out_plain = embed_plain(pts, pmask)
-    if any(kernels.LAUNCHES.values()):
-        raise AssertionError(f"plain path launched {kernels.LAUNCHES}")
-
-    checks = {}
-    for tag, out in (("bf16", out_bf16), ("fp32", out_fp32),
-                     ("plain_fp32", out_plain)):
-        gdesc = out["global"]
-        if gdesc.shape != (BATCH, cfg.output_dim):
-            raise AssertionError(f"{tag}: descriptor shape {gdesc.shape}")
-        if not torch.isfinite(gdesc).all():
-            raise AssertionError(f"{tag}: non-finite descriptors")
-        norm_err = float((gdesc.norm(dim=1) - 1).abs().max())
-        if norm_err > 1e-4:
-            raise AssertionError(f"{tag}: descriptors not unit norm "
-                                 f"({norm_err})")
-        if int(out["octree_overflow"]) != 0 or int(out["band_overflow"]):
-            raise AssertionError(f"{tag}: overflow "
-                                 f"{int(out['octree_overflow'])}")
-    gk, gp = out_fp32["global"], out_plain["global"]
-    cos = float((gk * gp).sum(1).min())
-    maxabs = float((gk - gp).abs().max())
-    if not (cos >= 0.9999 and maxabs <= 1e-4):
-        raise AssertionError(f"fp32 kernel vs plain descriptors: cos {cos}, "
-                             f"max abs {maxabs}")
-    cos_bf16 = float((out_bf16["global"] * gp).sum(1).min())
-    checks.update(fp32_kernel_vs_plain_min_cos=cos,
-                  fp32_kernel_vs_plain_max_abs=maxabs,
-                  bf16_vs_fp32_plain_min_cos=cos_bf16)
-
-    desc = out_bf16["global"].cpu().numpy()
-    _, idx = retrieval_topk(desc[1::2], desc[0::2], k=1)
-    recall1 = float(np.mean(idx[:, 0] == np.arange(BATCH // 2)))
-
-    def run():
-        embed_bf16(pts, pmask)
-        torch.cuda.synchronize()
-
-    run()
-    host_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        run()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(host_ms)
-
-    def octree_and_plan():           # as the serving forward builds it
-        with torch.inference_mode():
-            oc = build_batched_octree(pts, pmask, cfg.octree_depth,
-                                      cfg.min_depth, cfg.resolve_capacities())
-            build_plan(oc, tap_lists=False)
-        torch.cuda.synchronize()
-
-    octree_and_plan()
-    plan_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        octree_and_plan()
-        plan_ms.append((time.perf_counter() - t0) * 1e3)
-    emit({"phase": "slice", "config": "oxford_config", "batch": BATCH,
-          "launches_per_forward": launches, **checks,
-          "recall_at_1_random_weights": recall1,
-          "embed_bf16_ms_per_batch": ms,
-          "embed_bf16_ms_all": host_ms,
-          "octree_plan_ms": statistics.median(plan_ms),
-          "submaps_per_s_bf16": BATCH / (ms / 1e3),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-
+    launches, slice_line = serve_check(
+        torch, cfg, pts, pmask, cases,
+        {"window_attn": 34, "octree_dwconv": 34, "octree_conv": 3})
+    emit({"phase": "slice", "config": "oxford_config", **slice_line})
     emit({"phase": "slice_seconds",
           "seconds": round(time.time() - t_phase, 1)})
-    del model, plain_model, embed_bf16, embed_fp32, embed_plain
-    torch.cuda.empty_cache()
 
     # ---- 5. backward kernels at the train path's shapes ------------------
     t_phase = time.time()
-    bwd = bwd_kernel_phase(torch, F, dev, cfg, pts[:MICRO], spts[:MICRO],
+    bwd = bwd_kernel_phase(torch, dev, cfg, pts[:MICRO], spts[:MICRO],
                            pmask[:MICRO], cases, bound, rnd, device_jobs)
     emit({"phase": "bwd_kernels_seconds",
           "seconds": round(time.time() - t_phase, 1)})
@@ -1749,8 +2155,8 @@ def main():
     # ---- 6. the train step -----------------------------------------------
     t_phase = time.time()
     train_launches, train = train_phase(
-        torch, dev, dataclasses.replace(cfg, grad_checkpoint=False), pts,
-        pmask, cases)
+        torch, dev, "oxford_config",
+        dataclasses.replace(cfg, grad_checkpoint=False), pts, pmask, cases)
     emit({"phase": "train", **train,
           "seconds": round(time.time() - t_phase, 1)})
 
@@ -1764,6 +2170,13 @@ def main():
     t_phase = time.time()
     dp_launches, dp_rank_launches, dp = dp_phase(torch, smi)
     emit({"phase": "dp", **dp, "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 6d. the patch-64 and no-ADaPE configurations ---------------------
+    t_phase = time.time()
+    cfg_k1, cfg_k2, cfg_launches, configs = configs_phase(torch, dev, smi,
+                                                          rnd)
+    emit({"phase": "configs", **configs,
+          "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 7. the probe tools ---------------------------------------------
     t_phase = time.time()
@@ -1811,6 +2224,25 @@ def main():
                      "cc_ms": total("cc_ms_bf16")}
             if is_bwd:
                 extra["nodtab_ms"] = total("nodtab_ms_bf16")
+            # the same at cs_wild_places_config's shapes (T = 64 / 65)
+            crow = cfg_k2 if is_bwd else cfg_k1
+            src = cfg_launches["cs_wild_places_step" if is_bwd
+                               else "cs_wild_places_forward"]
+            extra["cs_wild_places"] = {
+                "launches": src[kname], "launches_tc": src[tc],
+                "max_abs_err": max(r["err_fp32"] for r in crow),
+                "max_abs_err_bf16": max(r["err_bf16"] for r in crow),
+                **{k: sum(r[f"{k}_bf16"] * r[mult] for r in crow)
+                   for k in ("ms", "cc_ms", "plain_ms", "bound_ms",
+                             "library_ms")},
+                "bound_by": "bytes" if {r["bound_by_bf16"] for r in crow}
+                == {"bytes"} else "operations",
+                "cases": {r["case"]: {
+                    k: r.get(k) for k in (
+                        "shape", "heads", "bnd", mult, "heads_per_round",
+                        "ms_bf16", "cc_ms_bf16", "nodtab_ms_bf16",
+                        "plain_ms_bf16", "bound_ms_bf16", "library_ms_bf16",
+                        "ms_fp32")} for r in crow}}
         elif kname in ("octree_dwconv", "octree_conv", "octree_dwconv_bwd",
                        "octree_conv_bwd"):
             # K5 / K6: the tensor-core bodies' launches and the CUDA-core
@@ -1861,6 +2293,14 @@ def main():
             "launches_entry": entry_launches[kname],
             "launches_dp": dp_launches[kname],
             "launches_dp_two_ranks": [la[kname] for la in dp_rank_launches],
+            "launches_cs_wild_places": cfg_launches[
+                "cs_wild_places_step" if is_bwd
+                else "cs_wild_places_forward"][kname],
+            "launches_cs_wild_places_entry": cfg_launches[
+                "cs_wild_places_entry"][kname],
+            "launches_wild_places": cfg_launches[
+                "wild_places_step" if is_bwd
+                else "wild_places_forward"][kname],
             "max_abs_err": max(r["err_fp32"] for r in rows),
             "max_abs_err_bf16": max(r["err_bf16"] for r in rows),
             "ms": total("ms_bf16"), "plain_ms": total("plain_ms_bf16"),

@@ -21,8 +21,9 @@
 // Two bodies per direction; ops/kernels/window_attn.py:attn_body picks one
 // by dtype and shape.
 //
-// Tensor-core bodies (bf16, hd % 16 == 0, hd <= 64, T <= 64: the main
-// path's hd = 16, T = 48 / 49). What bounds them on the H100: not the
+// Tensor-core bodies (bf16, hd % 16 == 0, hd <= 64, T <= 80: the main
+// path's hd = 16, T = 48 / 49 at patch 48 and T = 64 / 65 at patch 64).
+// What bounds them on the H100: not the
 // tensor cores (with hd = 16 every product is one to four k16 steps of
 // mma.sync) and not HBM (a window's (T, C) tiles, ~25 KB each, take about
 // a microsecond at an SM's share of the bandwidth), but the per-element
@@ -39,14 +40,27 @@
 //   of K2's tiles, so one resident block per SM keeps the copies simple
 //   and the 704-2816 windows of a call still give several waves;
 // - a warp owns one 16-row query slab of one head; S = Q K^T (and in K2
-//   dP = dO V^T) are mma.sync.m16n8k16 (bf16 in, fp32 accumulate) over 64
-//   key columns with fragments from ldmatrix; the softmax, the bias and
-//   dS = P (dP - rowsum) stay in registers in fp32, row reductions by quad
-//   shuffles; P (dS) is rounded to bf16 in registers and used as the A
-//   fragment of O = P V (dQ = dS K) directly, FlashAttention-2 style;
+//   dP = dO V^T) are mma.sync.m16n8k16 (bf16 in, fp32 accumulate) over
+//   16 KS key columns (KS = 4 key slabs for T <= 64, 5 for T <= 80: a
+//   template parameter, so that T <= 64 keeps 32 fp32 registers of S per
+//   thread) with fragments from ldmatrix. T = 65 (64 nodes and a relay
+//   slot) takes a fifth slab held in registers like the others (S in 40
+//   registers per thread), not a second pass over the keys with an online
+//   softmax: one pass keeps the softmax, the rounding points and K2's
+//   dS = P (dP - rowsum) as they are, and the registers fit (the
+//   backward's S and dP are 80 of the 128 a thread of 512 may hold:
+//   ptxas gives it 123 registers and no spill at hd 16). The softmax, the
+//   bias and dS = P (dP - rowsum) stay in registers in fp32, row
+//   reductions by quad shuffles; P (dS) is rounded to bf16 in registers
+//   and used as the A fragment of O = P V (dQ = dS K) directly,
+//   FlashAttention-2 style;
 // - K2 writes P and dS once to shared memory as bf16 and computes dV = P^T
-//   dO and dK = dS^T Q per 16-key slab with ldmatrix.trans, 4 heads at a
-//   time (16 warps);
+//   dO and dK = dS^T Q per 16-key slab with ldmatrix.trans, hpr heads at
+//   a time (a warp per head and slab: hpr KS warps). hpr is the most heads
+//   of a round, up to 16 warps, whose buffers fit shared memory beside the
+//   window's tiles (bwd_heads): 4 at patch 48, 3 for the dilated OctFormer
+//   windows at patch 64 (T 64, C 128, a 205-bin table per axis), 1 for
+//   H-OSA's (T 65, C 256, R = 80-row P and dS);
 // - rows beyond T are never stored: ldmatrix row addresses are clamped into
 //   the tile, and their logits are -inf (keys) or their P rows 0 (queries);
 // - outputs are staged in the consumed q/k/v tile columns and written back
@@ -83,12 +97,13 @@
 
 namespace {
 
-constexpr int kMaxT = 64;
+constexpr int kMaxT = 80;          // 5 slabs of 16 rows
+constexpr int kCcKeys = (kMaxT + 31) / 32;   // keys per lane, CUDA-core
 constexpr int kWarps = 4;          // CUDA-core bodies
 constexpr int kFwdWarps = 8;       // tensor-core forward
-constexpr int kBwdWarps = 16;      // tensor-core backward: 4 heads x 4 slabs
-constexpr int kBwdHeads = kBwdWarps / 4;
+constexpr int kBwdWarps = 16;      // tensor-core backward, at most
 constexpr int kPad = 8;            // bf16 row padding of the shared tiles
+constexpr size_t kSmemLimit = 232448;   // opt-in shared memory of a block
 constexpr float kMaskValue = -1e9f;
 
 typedef __nv_bfloat16 bf16;
@@ -172,10 +187,10 @@ window_attn_fwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = lane; d < hd; d += 32) orow[d] = from_f<T>(0.f);
       continue;
     }
-    float lg[2];
+    float lg[kCcKeys];
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kCcKeys; ++j) {
       const int s = lane + 32 * j;
       float l = -INFINITY;
       if (s < Tn) {
@@ -199,11 +214,17 @@ window_attn_fwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mx = fmaxf(mx, l);
     }
     mx = warp_max(mx);
-    const float e0 = lane < Tn ? expf(lg[0] - mx) : 0.f;
-    const float e1 = lane + 32 < Tn ? expf(lg[1] - mx) : 0.f;
-    const float sum = warp_sum(e0 + e1);
-    p[lane] = round_to<T>(e0 / sum);
-    p[lane + 32] = round_to<T>(e1 / sum);
+    float e[kCcKeys];
+    float esum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCcKeys; ++j) {
+      e[j] = lane + 32 * j < Tn ? expf(lg[j] - mx) : 0.f;
+      esum += e[j];
+    }
+    const float sum = warp_sum(esum);
+#pragma unroll
+    for (int j = 0; j < kCcKeys; ++j)
+      if (lane + 32 * j < Tn) p[lane + 32 * j] = round_to<T>(e[j] / sum);
     __syncwarp();
     for (int d = lane; d < hd; d += 32) {
       float acc = 0.f;
@@ -294,10 +315,10 @@ window_attn_bwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int d = lane; d < hd; d += 32) dqrow[d] = from_f<T>(0.f);
       continue;
     }
-    float lg[2];
+    float lg[kCcKeys];
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kCcKeys; ++j) {
       const int s = lane + 32 * j;
       float l = -INFINITY;
       if (s < Tn) {
@@ -321,21 +342,29 @@ window_attn_bwd_cc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mx = fmaxf(mx, l);
     }
     mx = warp_max(mx);
-    const float e0 = lane < Tn ? expf(lg[0] - mx) : 0.f;
-    const float e1 = lane + 32 < Tn ? expf(lg[1] - mx) : 0.f;
-    const float inv = 1.f / warp_sum(e0 + e1);
-    const float p[2] = {e0 * inv, e1 * inv};
-    float da[2] = {0.f, 0.f};
+    float p[kCcKeys];
+    float esum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kCcKeys; ++j) {
+      p[j] = lane + 32 * j < Tn ? expf(lg[j] - mx) : 0.f;
+      esum += p[j];
+    }
+    const float inv = 1.f / warp_sum(esum);
+    float da[kCcKeys];
+    float pda = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCcKeys; ++j) {
       const int s = lane + 32 * j;
+      p[j] *= inv;
+      da[j] = 0.f;
       if (s < Tn)
         for (int d = 0; d < hd; ++d)
           da[j] = fmaf(gs[t * hdp + d], vs[s * hdp + d], da[j]);
+      pda += p[j] * da[j];
     }
-    const float dsum = warp_sum(p[0] * da[0] + p[1] * da[1]);
+    const float dsum = warp_sum(pda);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kCcKeys; ++j) {
       const int s = lane + 32 * j;
       if (s >= Tn) continue;
       const float dl = p[j] * (da[j] - dsum);
@@ -451,11 +480,12 @@ struct Window {
 };
 
 // The logits of one warp's 16-row slab (rows t0 + g, t0 + g + 8) for one
-// head against the 64 key columns: S[j][e] is column 8j + 2c + (e & 1) of
-// row t0 + g + 8 (e >> 1). Scaled, biased and masked in place; keys >= Tn
-// are -inf. tab is the head's table column (3 * num floats).
-template <int HD>
-__device__ __forceinline__ void slab_logits(float (&S)[8][4], const bf16* qs,
+// head against the 16 KS key columns: S[j][e] is column 8j + 2c + (e & 1)
+// of row t0 + g + 8 (e >> 1). Scaled, biased and masked in place; keys >=
+// Tn are -inf. tab is the head's table column (3 * num floats).
+template <int HD, int KS>
+__device__ __forceinline__ void slab_logits(float (&S)[2 * KS][4],
+                                            const bf16* qs,
                                             const bf16* ks, int ld, int t0,
                                             int col0, const Window& win,
                                             const float* tab, float scale,
@@ -463,7 +493,7 @@ __device__ __forceinline__ void slab_logits(float (&S)[8][4], const bf16* qs,
   const int Tn = win.Tn;
   const int nkey = (Tn + 15) / 16;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) S[j][e] = 0.f;
   const int arow = min(t0 + (lane & 7) + 8 * ((lane >> 3) & 1), Tn - 1);
@@ -472,7 +502,7 @@ __device__ __forceinline__ void slab_logits(float (&S)[8][4], const bf16* qs,
     uint32_t a[4];
     ldsm_x4(a, qs + arow * ld + col0 + kk * 16 + 8 * (lane >> 4));
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
+    for (int jp = 0; jp < KS; ++jp) {
       if (jp >= nkey) continue;
       const int brow = min(16 * jp + (lane & 7) + 8 * (lane >> 4), Tn - 1);
       uint32_t b[4];
@@ -491,7 +521,7 @@ __device__ __forceinline__ void slab_logits(float (&S)[8][4], const bf16* qs,
       rc[i][a] = (win.use_rpe && rt[i] >= win.G && rt[i] < Tn)
                      ? win.cs[a * win.K + rt[i] - win.G] : 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
     for (int e2 = 0; e2 < 2; ++e2) {
       const int s = 8 * j + 2 * c + e2;
@@ -522,20 +552,21 @@ __device__ __forceinline__ void slab_logits(float (&S)[8][4], const bf16* qs,
 
 // Softmax of the slab's rows in place (fp32; quad shuffles reduce a row),
 // rows of invalid queries (mask 0 or t >= Tn) set to 0.
-__device__ __forceinline__ void slab_softmax(float (&S)[8][4], int t0,
+template <int KS>
+__device__ __forceinline__ void slab_softmax(float (&S)[2 * KS][4], int t0,
                                              const Window& win, int lane) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t0 + (lane >> 2) + 8 * i;
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 2 * KS; ++j)
       mx = fmaxf(mx, fmaxf(S[j][2 * i], S[j][2 * i + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float ex = expf(S[j][2 * i + e] - mx);
@@ -547,7 +578,7 @@ __device__ __forceinline__ void slab_softmax(float (&S)[8][4], int t0,
     const bool valid = t < win.Tn && win.ms[t] != 0;
     const float inv = valid ? 1.f / sum : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) S[j][2 * i + e] *= inv;
   }
@@ -555,28 +586,29 @@ __device__ __forceinline__ void slab_softmax(float (&S)[8][4], int t0,
 
 // A fragment of key step kk (keys 16kk..16kk+15) from a slab's C fragments,
 // rounded to bf16.
-__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&X)[8][4],
-                                       int kk) {
+template <int KS>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4],
+                                       const float (&X)[2 * KS][4], int kk) {
   a[0] = pack_bf16(X[2 * kk][0], X[2 * kk][1]);
   a[1] = pack_bf16(X[2 * kk][2], X[2 * kk][3]);
   a[2] = pack_bf16(X[2 * kk + 1][0], X[2 * kk + 1][1]);
   a[3] = pack_bf16(X[2 * kk + 1][2], X[2 * kk + 1][3]);
 }
 
-// acc (16 x HD) += X (16 x 64, C fragments, rounded to bf16) . B, with B the
-// (64, HD) rows of a shared tile at column col0 (rows clamped below Tn:
-// X is 0 there).
-template <int HD>
+// acc (16 x HD) += X (16 x 16 KS, C fragments, rounded to bf16) . B, with
+// B the (16 KS, HD) rows of a shared tile at column col0 (rows clamped
+// below Tn: X is 0 there).
+template <int HD, int KS>
 __device__ __forceinline__ void slab_times_tile(float (&acc)[HD / 8][4],
-                                                const float (&X)[8][4],
+                                                const float (&X)[2 * KS][4],
                                                 const bf16* bs, int ld,
                                                 int col0, int Tn, int lane) {
   const int nkey = (Tn + 15) / 16;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     if (kk >= nkey) continue;
     uint32_t a[4];
-    a_frag(a, X, kk);
+    a_frag<KS>(a, X, kk);
     const int brow = min(16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1), Tn - 1);
 #pragma unroll
     for (int dp = 0; dp < HD / 16; ++dp) {
@@ -607,7 +639,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int ld, int t0,
     }
 }
 
-template <int HD>
+template <int HD, int KS>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 window_attn_fwd_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -652,12 +684,12 @@ window_attn_fwd_tc_kernel(const bf16* __restrict__ q,
   // unit reads.
   for (int u = warp; u < nslab * H; u += kFwdWarps) {
     const int t0 = 16 * (u / H), h = u % H, col0 = h * HD;
-    float S[8][4];
-    slab_logits<HD>(S, qs, ks, ld, t0, col0, win, tab + h * 3 * num, scale,
-                    lane);
-    slab_softmax(S, t0, win, lane);
+    float S[2 * KS][4];
+    slab_logits<HD, KS>(S, qs, ks, ld, t0, col0, win, tab + h * 3 * num,
+                        scale, lane);
+    slab_softmax<KS>(S, t0, win, lane);
     float O[HD / 8][4] = {};
-    slab_times_tile<HD>(O, S, vs, ld, col0, Tn, lane);
+    slab_times_tile<HD, KS>(O, S, vs, ld, col0, Tn, lane);
     stage_rows<HD>(qs, ld, t0, col0, Tn, O, 1.f, lane);
   }
   __syncthreads();
@@ -702,71 +734,87 @@ __device__ __forceinline__ int sort_nodes(int* ord, int* val, int* rs,
 }
 
 // Adds one head's fp32 dS into its axis-a histogram hh, for the valid
-// nodes of ranks lane and lane + 32 as query rows (nv valid nodes in all;
-// run i of the key nodes in coordinate order is ranks rs[i] to rs[i+1]).
-// Per run, a lane sums its two rows' dS over the run's keys (one shared
-// load per element; the loads of a run are independent). Lanes of equal
-// row coordinate (neighbours: rows are sorted too) would add to one bin,
-// so they first merge their sums by a segmented shuffle scan (its depth,
-// the log of the longest segment, and each lane's masks are fixed per
-// task), and the last lane of a segment adds the total to the bin of (row
-// coordinate - run coordinate). So a shared add serves a (row coordinate,
-// key coordinate) pair instead of a (t, s) pair, and no two lanes of an
-// add share a bin but where clipping merges bins.
+// nodes of ranks lane + 32 r (r < NR) as query rows (nv <= 32 NR valid
+// nodes in all; run i of the key nodes in coordinate order is ranks rs[i]
+// to rs[i+1]). Per run, a lane sums its rows' dS over the run's keys (one
+// shared load per element; the loads of a run are independent). Lanes of
+// equal row coordinate (neighbours: rows are sorted too) would add to one
+// bin, so they first merge their sums by a segmented shuffle scan (its
+// depth, the log of the longest segment, and each lane's masks are fixed
+// per task), and the last lane of a segment adds the total to the bin of
+// (row coordinate - run coordinate). So a shared add serves a (row
+// coordinate, key coordinate) pair instead of a (t, s) pair, and no two
+// lanes of an add share a bin but where clipping merges bins. (Segments
+// do not cross from rank 32 r + 31 to 32 (r + 1): those two adds are
+// separate atomics.)
+template <int NR>
 __device__ __forceinline__ void node_histogram(float* hh, const float* ds,
                                                int dld, const int* ord,
                                                const int* val, const int* rs,
                                                int nrun, int nv,
                                                const Window& win, int lane) {
   const unsigned full = 0xffffffffu;
-  const bool on0 = lane < nv, on1 = lane + 32 < nv;
-  // distinct keys above every coordinate for the lanes past nv
-  const int key0 = on0 ? val[lane] : INT_MAX - 63 + lane;
-  const int key1 = on1 ? val[lane + 32] : INT_MAX - 31 + lane;
-  const float* row0 = ds + (win.G + (on0 ? ord[lane] : 0)) * dld + win.G;
-  const float* row1 = ds + (win.G + (on1 ? ord[lane + 32] : 0)) * dld + win.G;
-  const int len = max(__popc(__match_any_sync(full, key0)),
-                      __popc(__match_any_sync(full, key1)));
+  bool on[NR], tail[NR];
+  int key[NR];
+  const float* row[NR];
+  unsigned m[NR];                  // bit i: add the sum of lane - 2^i
+  int len = 0;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int rank = lane + 32 * r;
+    on[r] = rank < nv;
+    // distinct keys above every coordinate for the lanes past nv
+    key[r] = on[r] ? val[rank] : INT_MAX - 32 * (NR - r) + 1 + lane;
+    row[r] = ds + (win.G + (on[r] ? ord[rank] : 0)) * dld + win.G;
+    len = max(len, __popc(__match_any_sync(full, key[r])));
+    m[r] = 0;
+  }
   const int steps = 32 - __clz(__reduce_max_sync(full, len) - 1);
-  unsigned m0 = 0, m1 = 0;         // bit i: add the sum of lane - 2^i
   for (int i = 0; i < steps; ++i) {
     const int o = 1 << i;
-    const int k0 = __shfl_up_sync(full, key0, o);
-    const int k1 = __shfl_up_sync(full, key1, o);
-    m0 |= (lane >= o && k0 == key0) << i;
-    m1 |= (lane >= o && k1 == key1) << i;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int k = __shfl_up_sync(full, key[r], o);
+      m[r] |= (lane >= o && k == key[r]) << i;
+    }
   }
   // every lane shuffles (a lane that skipped a full-mask shuffle would
   // hang the warp); then the last lane of each segment is its tail
-  const int kn0 = __shfl_down_sync(full, key0, 1);
-  const int kn1 = __shfl_down_sync(full, key1, 1);
-  const bool tail0 = on0 && (lane == 31 || kn0 != key0);
-  const bool tail1 = on1 && (lane == 31 || kn1 != key1);
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const int kn = __shfl_down_sync(full, key[r], 1);
+    tail[r] = on[r] && (lane == 31 || kn != key[r]);
+  }
   for (int i = 0; i < nrun; ++i) {
     const int j0 = rs[i], j1 = rs[i + 1];
-    float s0 = 0.f, s1 = 0.f;
+    float sum[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sum[r] = 0.f;
 #pragma unroll 4
     for (int j = j0; j < j1; ++j) {
       const int s = ord[j];
-      s0 += row0[s];
-      s1 += row1[s];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) sum[r] += row[r][s];
     }
     for (int st = 0; st < steps; ++st) {
-      const float y0 = __shfl_up_sync(full, s0, 1 << st);
-      const float y1 = __shfl_up_sync(full, s1, 1 << st);
-      if ((m0 >> st) & 1) s0 += y0;
-      if ((m1 >> st) & 1) s1 += y1;
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float y = __shfl_up_sync(full, sum[r], 1 << st);
+        if ((m[r] >> st) & 1) sum[r] += y;
+      }
     }
     const int v = val[j0];
-    if (tail0 && s0 != 0.f)
-      atomicAdd(&hh[min(max(key0 - v, -win.bnd), win.bnd) + win.bnd], s0);
-    if (tail1 && s1 != 0.f)
-      atomicAdd(&hh[min(max(key1 - v, -win.bnd), win.bnd) + win.bnd], s1);
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if (tail[r] && sum[r] != 0.f)
+        atomicAdd(&hh[min(max(key[r] - v, -win.bnd), win.bnd) + win.bnd],
+                  sum[r]);
   }
 }
 
-// Backward, 16 warps, kBwdHeads heads per round. Round of heads h0..h0+3:
-//   phase 1, warp (head slot w / 4, query slab w % 4): S, P (fp32), dP =
+// Backward, hpr KS warps, hpr heads per round (bwd_heads). Round of heads
+// h0..h0+hpr-1:
+//   phase 1, warp (head slot w / KS, query slab w % KS): S, P (fp32), dP =
 //     dO V^T, dS = P (dP - rowsum); P and dS to shared memory as bf16,
 //     and dS as fp32 for the table gradient; dQ = dS K kept in registers;
 //   phase 2, warp (head slot, key slab): dV = P^T dO, dK = dS^T Q; then
@@ -775,7 +823,7 @@ __device__ __forceinline__ void node_histogram(float* hh, const float* ds,
 //   then the histogram goes to dtable (one atomic per non-zero bin) and is
 //     zeroed, and dQ, dK, dV are staged in their head's consumed q, k, v
 //     columns.
-template <int HD>
+template <int HD, int KS>
 __global__ void __launch_bounds__(kBwdWarps * 32)
 window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
@@ -787,7 +835,9 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
                           long long gsr, bf16* __restrict__ dq,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           float* __restrict__ dtable, int H, int Tn, int K,
-                          int bnd, int use_rpe, int want_dtab, float scale) {
+                          int bnd, int use_rpe, int want_dtab, int hpr,
+                          float scale) {
+  constexpr int NR = (16 * KS + 31) / 32;   // query ranks per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = H * HD;
   const int ld = C + kPad;
@@ -797,19 +847,19 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
   const int pld = R + kPad;
   const int dld = Tn | 1;          // odd: a warp's rows hit distinct banks
   const int w = blockIdx.x;
+  const int nwarps = blockDim.x >> 5;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + Tn * ld;
   bf16* vs = ks + Tn * ld;
   bf16* gs = vs + Tn * ld;
-  bf16* Ps = gs + Tn * ld;                       // kBwdHeads x (R, pld)
-  bf16* Ds = Ps + kBwdHeads * R * pld;           // kBwdHeads x (R, pld)
-  float* tab = reinterpret_cast<float*>(Ds + kBwdHeads * R * pld);
-  // want_dtab: fp32 dS kBwdHeads x (Tn, dld), histogram kBwdHeads x
-  // (3, num), nodes sorted per axis (ord, val: 3 x K each)
-  float* dsf = tab + (use_rpe ? kBwdHeads * 3 * num : 0);
-  float* hist = dsf + (want_dtab ? kBwdHeads * Tn * dld : 0);
-  int* ord = reinterpret_cast<int*>(
-      hist + (want_dtab ? kBwdHeads * 3 * num : 0));
+  bf16* Ps = gs + Tn * ld;                       // hpr x (R, pld)
+  bf16* Ds = Ps + hpr * R * pld;                 // hpr x (R, pld)
+  float* tab = reinterpret_cast<float*>(Ds + hpr * R * pld);
+  // want_dtab: fp32 dS hpr x (Tn, dld), histogram hpr x (3, num), nodes
+  // sorted per axis (ord, val: 3 x K each)
+  float* dsf = tab + (use_rpe ? hpr * 3 * num : 0);
+  float* hist = dsf + (want_dtab ? hpr * Tn * dld : 0);
+  int* ord = reinterpret_cast<int*>(hist + (want_dtab ? hpr * 3 * num : 0));
   int* val = ord + (want_dtab ? 3 * K : 0);
   int* rs = val + (want_dtab ? 3 * K : 0);       // run starts, 3 x (K + 1)
   int* nrun = rs + (want_dtab ? 3 * (K + 1) : 0);
@@ -824,7 +874,7 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
     for (int i = threadIdx.x; i < 3 * K; i += blockDim.x)
       cs[i] = xyz[(size_t)w * 3 * K + i];
   if (want_dtab)
-    for (int i = threadIdx.x; i < kBwdHeads * 3 * num; i += blockDim.x)
+    for (int i = threadIdx.x; i < hpr * 3 * num; i += blockDim.x)
       hist[i] = 0.f;
   for (int i = threadIdx.x; i < Tn; i += blockDim.x)
     ms[i] = mask[(size_t)w * Tn + i];
@@ -834,13 +884,13 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
   const Window win{cs, ms, Tn, K, Tn - K, bnd, num, use_rpe};
   const int nv = want_dtab ? sort_nodes(ord, val, rs, nrun, win) : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int hs = warp >> 2, slab = warp & 3;
+  const int hs = warp / KS, slab = warp % KS;
   const int gq = lane >> 2, cq = lane & 3;
   bf16* P = Ps + hs * R * pld;
   bf16* D = Ds + hs * R * pld;
-  for (int h0 = 0; h0 < H; h0 += kBwdHeads) {
+  for (int h0 = 0; h0 < H; h0 += hpr) {
     if (use_rpe)                   // table columns of this round's heads
-      for (int i = threadIdx.x; i < kBwdHeads * 3 * num; i += blockDim.x) {
+      for (int i = threadIdx.x; i < hpr * 3 * num; i += blockDim.x) {
         const int hi = h0 + i / (3 * num);
         tab[i] = hi < H ? table[(size_t)(i % (3 * num)) * H + hi] : 0.f;
       }
@@ -850,11 +900,11 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
     const int t0 = 16 * slab;
     float dQ[HD / 8][4] = {};
     if (busy) {
-      float S[8][4];
-      slab_logits<HD>(S, qs, ks, ld, t0, col0, win, tab + hs * 3 * num,
-                      scale, lane);
-      slab_softmax(S, t0, win, lane);            // S holds P (fp32)
-      float dP[8][4] = {};
+      float S[2 * KS][4];
+      slab_logits<HD, KS>(S, qs, ks, ld, t0, col0, win, tab + hs * 3 * num,
+                          scale, lane);
+      slab_softmax<KS>(S, t0, win, lane);        // S holds P (fp32)
+      float dP[2 * KS][4] = {};
       {
         const int arow = min(t0 + (lane & 7) + 8 * ((lane >> 3) & 1), Tn - 1);
 #pragma unroll
@@ -862,7 +912,7 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
           uint32_t a[4];
           ldsm_x4(a, gs + arow * ld + col0 + kk * 16 + 8 * (lane >> 4));
 #pragma unroll
-          for (int jp = 0; jp < 4; ++jp) {
+          for (int jp = 0; jp < KS; ++jp) {
             if (jp >= nslab) continue;
             const int brow = min(16 * jp + (lane & 7) + 8 * (lane >> 4),
                                  Tn - 1);
@@ -878,18 +928,18 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
       for (int i = 0; i < 2; ++i) {
         float rs = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 2 * KS; ++j)
           rs += S[j][2 * i] * dP[j][2 * i] + S[j][2 * i + 1] * dP[j][2 * i + 1];
         rs += __shfl_xor_sync(0xffffffffu, rs, 1);
         rs += __shfl_xor_sync(0xffffffffu, rs, 2);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
             dP[j][2 * i + e] = S[j][2 * i + e] * (dP[j][2 * i + e] - rs);
       }                                          // dP holds dS (fp32)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 2 * KS; ++j) {
         if (j >= 2 * nslab) continue;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -903,7 +953,7 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
       if (want_dtab) {             // fp32 dS of rows and keys < Tn
         float* dsh = dsf + hs * Tn * dld;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 2 * KS; ++j)
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -912,13 +962,13 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
               if (t < Tn && s < Tn) dsh[t * dld + s] = dP[j][2 * i + e];
             }
       }
-      slab_times_tile<HD>(dQ, dP, ks, ld, col0, Tn, lane);
+      slab_times_tile<HD, KS>(dQ, dP, ks, ld, col0, Tn, lane);
     }
     __syncthreads();
     float dK[HD / 8][4] = {}, dV[HD / 8][4] = {};
     if (busy) {                    // key slab s0 = t0
 #pragma unroll
-      for (int kt = 0; kt < 4; ++kt) {
+      for (int kt = 0; kt < KS; ++kt) {
         if (kt >= nslab) continue;
         const int prow = 16 * kt + (lane & 7) + 8 * (lane >> 4);
         const int pcol = t0 + 8 * ((lane >> 3) & 1);
@@ -941,16 +991,16 @@ window_attn_bwd_tc_kernel(const bf16* __restrict__ q,
       }
     }
     // histogram tasks: a warp per (head slot, axis)
-    for (int task = warp; nv > 0 && task < kBwdHeads * 3; task += kBwdWarps) {
+    for (int task = warp; nv > 0 && task < hpr * 3; task += nwarps) {
       const int ht = task / 3, a = task % 3;
       if (h0 + ht < H)
-        node_histogram(hist + task * num, dsf + ht * Tn * dld, dld,
-                       ord + a * K, val + a * K, rs + a * (K + 1), nrun[a],
-                       nv, win, lane);
+        node_histogram<NR>(hist + task * num, dsf + ht * Tn * dld, dld,
+                           ord + a * K, val + a * K, rs + a * (K + 1),
+                           nrun[a], nv, win, lane);
     }
     __syncthreads();
     if (want_dtab)
-      for (int i = threadIdx.x; i < kBwdHeads * 3 * num; i += blockDim.x) {
+      for (int i = threadIdx.x; i < hpr * 3 * num; i += blockDim.x) {
         const int hi = h0 + i / (3 * num);
         const float hv = hist[i];
         hist[i] = 0.f;
@@ -985,18 +1035,33 @@ size_t fwd_tc_smem(int Tn, int C, int H, int K, int bnd, int use_rpe) {
   return s;
 }
 
+// The tensor-core bodies' key slabs: 4 (T <= 64) or 5 (T <= 80).
+int key_slabs(int Tn) { return Tn > 64 ? 5 : 4; }
+
 size_t bwd_tc_smem(int Tn, int C, int K, int bnd, int use_rpe,
-                   int want_dtab) {
+                   int want_dtab, int hpr) {
   const int R = 16 * ((Tn + 15) / 16);
   const int num = 2 * bnd + 1;
   size_t s = sizeof(bf16) * (4 * Tn * (C + kPad) +
-                             2 * kBwdHeads * R * (R + kPad)) +
+                             2 * (size_t)hpr * R * (R + kPad)) +
              sizeof(int) * Tn;
-  if (use_rpe) s += sizeof(float) * kBwdHeads * 3 * num + sizeof(int) * 3 * K;
+  if (use_rpe) s += sizeof(float) * hpr * 3 * num + sizeof(int) * 3 * K;
   if (want_dtab)
-    s += sizeof(float) * kBwdHeads * (Tn * (Tn | 1) + 3 * num) +
+    s += sizeof(float) * hpr * (Tn * (Tn | 1) + 3 * num) +
          sizeof(int) * (3 * (3 * K + 1) + 3);
   return s;
+}
+
+// Heads per round of the tensor-core backward: the most, up to kBwdWarps /
+// KS and H, whose buffers fit kSmemLimit beside the window's tiles (1 when
+// none does: the launch then refuses the shape).
+int bwd_heads(int Tn, int C, int H, int K, int bnd, int use_rpe,
+              int want_dtab) {
+  int hpr = min(kBwdWarps / key_slabs(Tn), H);
+  while (hpr > 1 &&
+         bwd_tc_smem(Tn, C, K, bnd, use_rpe, want_dtab, hpr) > kSmemLimit)
+    --hpr;
+  return hpr;
 }
 
 template <typename T>
@@ -1020,17 +1085,19 @@ cudaError_t launch_fwd_cc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int KS>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v,
                           long long sw, long long sr, const int* xyz,
                           const int* mask, const float* table, void* out,
                           int BW, int Tn, int C, int H, int K, int bnd,
                           int use_rpe, float scale, cudaStream_t stream) {
   const size_t smem = fwd_tc_smem(Tn, C, H, K, bnd, use_rpe);
-  cudaError_t e = set_smem((const void*)window_attn_fwd_tc_kernel<HD>, smem);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e =
+      set_smem((const void*)window_attn_fwd_tc_kernel<HD, KS>, smem);
   if (e != cudaSuccess) return e;
-  window_attn_fwd_tc_kernel<HD><<<dim3((unsigned)BW), kFwdWarps * 32, smem,
-                                  stream>>>(
+  window_attn_fwd_tc_kernel<HD, KS><<<dim3((unsigned)BW), kFwdWarps * 32,
+                                      smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), sw, sr, xyz, mask, table,
       static_cast<bf16*>(out), H, Tn, K, bnd, use_rpe, scale);
@@ -1063,7 +1130,7 @@ cudaError_t launch_bwd_cc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int KS>
 cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           long long sw, long long sr, const int* xyz,
                           const int* mask, const float* table, const void* g,
@@ -1071,22 +1138,67 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v,
                           void* dv, float* dtable, int BW, int Tn, int C,
                           int H, int K, int bnd, int use_rpe, int want_dtab,
                           float scale, cudaStream_t stream) {
-  const size_t smem = bwd_tc_smem(Tn, C, K, bnd, use_rpe, want_dtab);
-  cudaError_t e = set_smem((const void*)window_attn_bwd_tc_kernel<HD>, smem);
+  const int hpr = bwd_heads(Tn, C, H, K, bnd, use_rpe, want_dtab);
+  const size_t smem = bwd_tc_smem(Tn, C, K, bnd, use_rpe, want_dtab, hpr);
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e =
+      set_smem((const void*)window_attn_bwd_tc_kernel<HD, KS>, smem);
   if (e != cudaSuccess) return e;
-  window_attn_bwd_tc_kernel<HD><<<dim3((unsigned)BW), kBwdWarps * 32, smem,
-                                  stream>>>(
+  window_attn_bwd_tc_kernel<HD, KS><<<dim3((unsigned)BW), hpr * KS * 32,
+                                      smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), sw, sr, xyz, mask, table,
       static_cast<const bf16*>(g), gsw, gsr, static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), dtable, H, Tn, K, bnd,
-      use_rpe, want_dtab, scale);
+      use_rpe, want_dtab, hpr, scale);
   return cudaGetLastError();
+}
+
+typedef cudaError_t (*FwdTc)(const void*, const void*, const void*,
+                             long long, long long, const int*, const int*,
+                             const float*, void*, int, int, int, int, int,
+                             int, int, float, cudaStream_t);
+typedef cudaError_t (*BwdTc)(const void*, const void*, const void*,
+                             long long, long long, const int*, const int*,
+                             const float*, const void*, long long, long long,
+                             void*, void*, void*, float*, int, int, int, int,
+                             int, int, int, int, float, cudaStream_t);
+
+template <int HD>
+FwdTc fwd_tc_for(int KS) {
+  if (KS == 5) return launch_fwd_tc<HD, 5>;
+  return launch_fwd_tc<HD, 4>;
+}
+template <int HD>
+BwdTc bwd_tc_for(int KS) {
+  if (KS == 5) return launch_bwd_tc<HD, 5>;
+  return launch_bwd_tc<HD, 4>;
+}
+
+// The tensor-core instantiation for head width hd and key slabs KS
+// (nullptr for a head width the bodies do not take).
+FwdTc fwd_tc_fn(int hd, int KS) {
+  switch (hd) {
+    case 16: return fwd_tc_for<16>(KS);
+    case 32: return fwd_tc_for<32>(KS);
+    case 48: return fwd_tc_for<48>(KS);
+    case 64: return fwd_tc_for<64>(KS);
+    default: return nullptr;
+  }
+}
+BwdTc bwd_tc_fn(int hd, int KS) {
+  switch (hd) {
+    case 16: return bwd_tc_for<16>(KS);
+    case 32: return bwd_tc_for<32>(KS);
+    case 48: return bwd_tc_for<48>(KS);
+    case 64: return bwd_tc_for<64>(KS);
+    default: return nullptr;
+  }
 }
 
 // The tensor-core bodies' shape rule (mirrored by attn_body in
 // ops/kernels/window_attn.py, which adds the shared-memory limit):
-// bf16, hd in {16, 32, 48, 64}, T <= 64, 16-byte aligned rows.
+// bf16, hd in {16, 32, 48, 64}, T <= 80, 16-byte aligned rows.
 bool tc_shape_ok(int Tn, int C, int H, long long sw, long long sr) {
   const int hd = C / H;
   return hd % 16 == 0 && hd <= 64 && Tn <= kMaxT && sw % 8 == 0 &&
@@ -1095,11 +1207,25 @@ bool tc_shape_ok(int Tn, int C, int H, long long sw, long long sr) {
 
 }  // namespace
 
+// The tensor-core bodies' plan at a shape: writes the forward's and the
+// backward's shared-memory bytes and returns the backward's heads per
+// round (ops/kernels/window_attn.py:tc_plan computes the same).
+extern "C" int window_attn_tc_plan(int Tn, int C, int H, int K, int bnd,
+                                   int use_rpe, int want_dtab,
+                                   long long* fwd_bytes,
+                                   long long* bwd_bytes) {
+  want_dtab = want_dtab && use_rpe;
+  const int hpr = bwd_heads(Tn, C, H, K, bnd, use_rpe, want_dtab);
+  *fwd_bytes = (long long)fwd_tc_smem(Tn, C, H, K, bnd, use_rpe);
+  *bwd_bytes = (long long)bwd_tc_smem(Tn, C, K, bnd, use_rpe, want_dtab, hpr);
+  return hpr;
+}
+
 // q, k, v: (BW, T, C) float32 (dtype 0) or bfloat16 (dtype 1) with the
 // last dimension contiguous, rows sr and windows sw elements apart (the
 // same for the three); out: contiguous (BW, T, C). xyz: (BW, 3, K) int32
 // with K = T - G; mask: (BW, T) int32; table: (3 * (2 * bnd + 1), H)
-// float32. T <= 64. tc = 1 runs the tensor-core body (bf16 only, shapes of
+// float32. T <= 80. tc = 1 runs the tensor-core body (bf16 only, shapes of
 // tc_shape_ok, 16-byte aligned pointers), 0 the CUDA-core body. Returns
 // cudaError_t.
 extern "C" int window_attn_fwd(const void* q, const void* k, const void* v,
@@ -1114,19 +1240,11 @@ extern "C" int window_attn_fwd(const void* q, const void* k, const void* v,
   const float* tb = static_cast<const float*>(table);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tc) {
-    if (dtype != 1 || !tc_shape_ok(Tn, C, H, sw, sr))
+    const FwdTc fn = fwd_tc_fn(C / H, key_slabs(Tn));
+    if (dtype != 1 || !tc_shape_ok(Tn, C, H, sw, sr) || fn == nullptr)
       return cudaErrorInvalidValue;
-    switch (C / H) {
-      case 16: return launch_fwd_tc<16>(q, k, v, sw, sr, xi, mi, tb, out, BW,
-                                        Tn, C, H, K, bnd, use_rpe, scale, s);
-      case 32: return launch_fwd_tc<32>(q, k, v, sw, sr, xi, mi, tb, out, BW,
-                                        Tn, C, H, K, bnd, use_rpe, scale, s);
-      case 48: return launch_fwd_tc<48>(q, k, v, sw, sr, xi, mi, tb, out, BW,
-                                        Tn, C, H, K, bnd, use_rpe, scale, s);
-      case 64: return launch_fwd_tc<64>(q, k, v, sw, sr, xi, mi, tb, out, BW,
-                                        Tn, C, H, K, bnd, use_rpe, scale, s);
-      default: return cudaErrorInvalidValue;
-    }
+    return fn(q, k, v, sw, sr, xi, mi, tb, out, BW, Tn, C, H, K, bnd,
+              use_rpe, scale, s);
   }
   if (dtype == 0)
     return launch_fwd_cc<float>(q, k, v, sw, sr, xi, mi, tb, out, BW, Tn, C,
@@ -1158,23 +1276,12 @@ extern "C" int window_attn_bwd(const void* q, const void* k, const void* v,
   want_dtab = want_dtab && use_rpe;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tc) {
-    if (dtype != 1 || !tc_shape_ok(Tn, C, H, sw, sr) || gsw % 8 || gsr % 8)
+    const BwdTc fn = bwd_tc_fn(C / H, key_slabs(Tn));
+    if (dtype != 1 || !tc_shape_ok(Tn, C, H, sw, sr) || gsw % 8 || gsr % 8 ||
+        fn == nullptr)
       return cudaErrorInvalidValue;
-    switch (C / H) {
-      case 16: return launch_bwd_tc<16>(q, k, v, sw, sr, xi, mi, tb, g, gsw,
-                                        gsr, dq, dk, dv, dt, BW, Tn, C, H, K,
-                                        bnd, use_rpe, want_dtab, scale, s);
-      case 32: return launch_bwd_tc<32>(q, k, v, sw, sr, xi, mi, tb, g, gsw,
-                                        gsr, dq, dk, dv, dt, BW, Tn, C, H, K,
-                                        bnd, use_rpe, want_dtab, scale, s);
-      case 48: return launch_bwd_tc<48>(q, k, v, sw, sr, xi, mi, tb, g, gsw,
-                                        gsr, dq, dk, dv, dt, BW, Tn, C, H, K,
-                                        bnd, use_rpe, want_dtab, scale, s);
-      case 64: return launch_bwd_tc<64>(q, k, v, sw, sr, xi, mi, tb, g, gsw,
-                                        gsr, dq, dk, dv, dt, BW, Tn, C, H, K,
-                                        bnd, use_rpe, want_dtab, scale, s);
-      default: return cudaErrorInvalidValue;
-    }
+    return fn(q, k, v, sw, sr, xi, mi, tb, g, gsw, gsr, dq, dk, dv, dt, BW,
+              Tn, C, H, K, bnd, use_rpe, want_dtab, scale, s);
   }
   if (dtype == 0)
     return launch_bwd_cc<float>(q, k, v, sw, sr, xi, mi, tb, g, gsw, gsr, dq,

@@ -27,9 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
                                               RelayTokenBlock)
-from hotformerloc_torch.models.config import ModelConfig
-from hotformerloc_torch.models.layers import (ADaPE, Downsample, DropPath,
-                                              OctreeConvNormRelu,
+from hotformerloc_torch.models.config import ADAPE_STATS, ModelConfig
+from hotformerloc_torch.models.layers import (CPE, ADaPE, Downsample,
+                                              DropPath, OctreeConvNormRelu,
                                               OctreeDownConvNormRelu, linear)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import OctreePlan
@@ -154,8 +154,18 @@ class HOTFormerIteration(nn.Module):
 
 
 class HOTFormerStage(nn.Module):
-    """Pyramid init (downsample chain), relay-token init (masked window
-    mean + ADaPE), then num_blocks iterations of [RTSA -> H-OSA]."""
+    """Pyramid init (downsample chain), relay-token init, then num_blocks
+    iterations of [RTSA -> H-OSA].
+
+    The relay-token init (JAX models/backbone.py:273-310) is the masked
+    window mean plus ADaPE over the window statistics of
+    ``cfg.adape_mode`` (3, 6 or 9 inputs); without ADaPE (mode None) it
+    is the masked window mean of the level's features after a CPE: one
+    ``rt_init_cpe`` shared by the levels (they have one width when there
+    are no projections) or ``rt_init_cpe{j}`` per level with them. The
+    CPE'd features feed only the relay tokens. It runs K3 forward and K4
+    backward like every CPE, outside activation checkpointing as in the
+    JAX package (not a remat site there)."""
 
     def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
                  num_heads: Tuple[int, ...], drop_paths: Sequence[float],
@@ -169,11 +179,20 @@ class HOTFormerStage(nn.Module):
         for j in range(L - 1):
             self.add_module(f"downsample{j}", Downsample(
                 channels[j], channels[j + 1], device=device))
-        self.rt_adape = ADaPE(9, max_ch, device=device)
+        self.use_adape = cfg.adape_mode is not None
+        if self.use_adape:
+            self.rt_adape = ADaPE(ADAPE_STATS[cfg.adape_mode], max_ch,
+                                  device=device)
+        elif not cfg.use_projections:
+            self.rt_init_cpe = CPE(max_ch, device=device)
         if cfg.use_projections:
             for j in range(L):
-                self.add_module(f"adape_proj{j}", linear(
-                    max_ch, channels[j], device=device))
+                if self.use_adape:
+                    self.add_module(f"adape_proj{j}", linear(
+                        max_ch, channels[j], device=device))
+                else:
+                    self.add_module(f"rt_init_cpe{j}", CPE(
+                        channels[j], device=device))
                 self.add_module(f"init_up_proj{j}", linear(
                     channels[j], max_ch, device=device))
         self.iters = nn.ModuleList(
@@ -192,13 +211,19 @@ class HOTFormerStage(nn.Module):
                 locals_[j], plan.children(self.depths[j])))
         rts = []
         for j, d in enumerate(self.depths):
-            rt = ow.masked_window_mean(locals_[j], ctxs[j].node_valid, chunk)
-            stats = ow.window_stats(ctxs[j].xyz, ctxs[j].node_valid, d,
-                                    chunk, c.adape_mode)
-            pe = self.rt_adape(stats, x.dtype)
-            if c.use_projections:
-                pe = getattr(self, f"adape_proj{j}")(pe)
-            rt = rt + pe
+            src = locals_[j]
+            if not self.use_adape:
+                cpe = (getattr(self, f"rt_init_cpe{j}")
+                       if c.use_projections else self.rt_init_cpe)
+                src = cpe(src, ctxs[j])
+            rt = ow.masked_window_mean(src, ctxs[j].node_valid, chunk)
+            if self.use_adape:
+                stats = ow.window_stats(ctxs[j].xyz, ctxs[j].node_valid, d,
+                                        chunk, c.adape_mode)
+                pe = self.rt_adape(stats, x.dtype)
+                if c.use_projections:
+                    pe = getattr(self, f"adape_proj{j}")(pe)
+                rt = rt + pe
             if c.use_projections:
                 rt = getattr(self, f"init_up_proj{j}")(rt)
             rts.append(rt)

@@ -181,9 +181,15 @@ class ModelConfig:
         return tuple(self.drop_path * i / (total - 1) for i in range(total))
 
 
+# ADaPE input width per mode (ops/window.py:window_stats); None: no
+# ADaPE, the relay tokens start from a CPE'd window mean instead.
+ADAPE_STATS = {None: 0, "pos": 3, "var": 6, "cov": 9}
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError naming each option this package does not
-    run yet. None of these is on the serving path of oxford_config."""
+    run yet. None of these is in a shipped configuration
+    (configs/*_model.txt)."""
     unsupported = []
     if cfg.input_features != "P":
         unsupported.append(f"input_features={cfg.input_features!r}")
@@ -203,7 +209,7 @@ def check_supported(cfg: ModelConfig) -> None:
         unsupported.append(f"rt_size={cfg.rt_size}")
     if not cfg.downsample_input_embeddings:
         unsupported.append("downsample_input_embeddings=False")
-    if cfg.adape_mode != "cov":
+    if cfg.adape_mode not in ADAPE_STATS:
         unsupported.append(f"adape_mode={cfg.adape_mode!r}")
     for name in ("proj_drop", "attn_drop"):     # 0.0 in every shipped config
         if getattr(cfg, name) != 0.0:
@@ -218,6 +224,16 @@ def oxford_config(**overrides) -> ModelConfig:
     with the JAX package's occupancy-tuned capacities."""
     kw = dict(octree_depth=9, num_points=4096, patch_size=48,
               capacities=(2688, 4224, 4224, 4224, 4096, 4096))
+    kw.update(overrides)
+    return ModelConfig(**kw)
+
+
+def cs_wild_places_config(**overrides) -> ModelConfig:
+    """HOTFormerLoc-CSWildPlaces (the reference's
+    hotformerloc_cs-wild-places_cfg.txt), with the JAX package's
+    occupancy-tuned capacities (depths 2..7)."""
+    kw = dict(octree_depth=7, num_points=4096, patch_size=64,
+              capacities=(256, 512, 2816, 4096, 4096, 4096))
     kw.update(overrides)
     return ModelConfig(**kw)
 

@@ -11,9 +11,10 @@ JAX entry's.
 
 Each direction has two kernel bodies, and ``attn_body`` picks one from
 the dtype and the shape alone: the tensor-core body ("tc": bf16, head
-width a multiple of 16 up to 64, T <= 64, the window's tiles within
+width a multiple of 16 up to 64, T <= 80, the window's tiles within
 shared memory) or the CUDA-core body ("cc": fp32, the parity path, and
-any other shape). q, k, v (and g) may be strided views, such as slices of
+any other shape). Both take windows of up to ``MAX_T`` = 80 tokens: the
+64 nodes and one relay slot of patch 64's H-OSA windows fit. q, k, v (and g) may be strided views, such as slices of
 one qkv projection: the last dimension contiguous, the three with equal
 strides.
 """
@@ -36,38 +37,73 @@ _FWD_ARGTYPES = [_P] * 3 + [_L] * 2 + [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P]
 _BWD_ARGTYPES = ([_P] * 3 + [_L] * 2 + [_P] * 4 + [_L] * 2 + [_P] * 4
                  + [_I] * 8 + [_F, _I, _I, _P])
 
-# Shared memory a block may use on the H100 (bytes), and the tensor-core
-# bodies' layout constants (csrc/window_attn.cu: kPad, kBwdHeads).
+# Shared memory a block may use on the H100 (bytes), the longest window
+# both bodies take, and the tensor-core bodies' layout constants
+# (csrc/window_attn.cu: kSmemLimit, kMaxT, kPad, kBwdWarps).
 SMEM_LIMIT = 232448
-_PAD, _BWD_HEADS = 8, 4
+MAX_T = 80
+_PAD, _BWD_WARPS = 8, 16
 
 
-def tc_smem(T: int, C: int, H: int, pos_bnd: int) -> int:
-    """Shared-memory bytes of the larger of the tensor-core forward and
-    backward at (T, C, H) with the RPE and its table gradient on, as the
-    launchers in csrc/window_attn.cu size them (K = T at most)."""
+def tc_plan(T: int, C: int, H: int, pos_bnd: int, K: int | None = None):
+    """The tensor-core bodies' plan at (T, C, H) with the RPE and its
+    table gradient on, as csrc/window_attn.cu's launchers make it
+    (window_attn_tc_plan): (heads per round of the backward, forward
+    bytes, backward bytes) of shared memory. K (window nodes, T - G)
+    defaults to T, the most it can be. The backward takes 4 key slabs of
+    16 for T <= 64 and 5 above, a warp per (head, slab), and as many
+    heads per round, up to 16 warps, as fit ``SMEM_LIMIT`` beside the
+    window's four (T, C) tiles (1 when none does)."""
+    K = T if K is None else K
     num = 2 * pos_bnd + 1
     R = 16 * -(-T // 16)
-    fwd = 2 * 3 * T * (C + _PAD) + 4 * T + 4 * H * 3 * num + 4 * 3 * T
-    bwd = (2 * (4 * T * (C + _PAD) + 2 * _BWD_HEADS * R * (R + _PAD))
-           + 4 * T + 4 * 3 * T                   # mask, coords
-           + 4 * 2 * _BWD_HEADS * 3 * num        # table columns, histogram
-           + 4 * _BWD_HEADS * T * (T | 1)        # fp32 dS
-           + 4 * (9 * T + 6))                    # nodes sorted per axis
+    fwd = 2 * 3 * T * (C + _PAD) + 4 * T + 4 * H * 3 * num + 4 * 3 * K
+
+    def bwd(hpr):
+        return (2 * (4 * T * (C + _PAD) + 2 * hpr * R * (R + _PAD))
+                + 4 * T + 4 * 3 * K                # mask, coords
+                + 4 * 2 * hpr * 3 * num            # table columns, histogram
+                + 4 * hpr * T * (T | 1)            # fp32 dS
+                + 4 * (9 * K + 6))                 # nodes sorted per axis
+    hpr = min(_BWD_WARPS // (4 if T <= 64 else 5), H)
+    while hpr > 1 and bwd(hpr) > SMEM_LIMIT:
+        hpr -= 1
+    return hpr, fwd, bwd(hpr)
+
+
+def tc_smem(T: int, C: int, H: int, pos_bnd: int,
+            K: int | None = None) -> int:
+    """Shared-memory bytes of the larger of the tensor-core forward and
+    backward (``tc_plan``)."""
+    _, fwd, bwd = tc_plan(T, C, H, pos_bnd, K)
     return max(fwd, bwd)
 
 
-def attn_body(dtype: torch.dtype, T: int, C: int, H: int,
-              pos_bnd: int) -> str:
+def attn_body(dtype: torch.dtype, T: int, C: int, H: int, pos_bnd: int,
+              K: int | None = None) -> str:
     """The kernel body K1 and K2 run for this dtype and shape: "tc" (the
     tensor-core bodies) for bf16 with hd = C / H a multiple of 16 up to
-    64, T <= 64 and the tiles within ``SMEM_LIMIT``; else "cc" (the
-    CUDA-core bodies, which the wrappers still refuse for T > 64)."""
+    64, T <= ``MAX_T`` and the tiles within ``SMEM_LIMIT``; else "cc"
+    (the CUDA-core bodies)."""
     hd = C // H if H > 0 and C % H == 0 else 0
     if (dtype == torch.bfloat16 and hd > 0 and hd % 16 == 0 and hd <= 64
-            and T <= 64 and tc_smem(T, C, H, pos_bnd) <= SMEM_LIMIT):
+            and T <= MAX_T and tc_smem(T, C, H, pos_bnd, K) <= SMEM_LIMIT):
         return "tc"
     return "cc"
+
+
+def launcher_tc_plan(T: int, C: int, H: int, pos_bnd: int,
+                     K: int | None = None):
+    """``tc_plan`` as csrc/window_attn.cu's launchers compute it
+    (window_attn_tc_plan; builds the library): chip_smoke.py holds the
+    two equal at the main path's shapes."""
+    K = T if K is None else K
+    fn = build.library("window_attn").window_attn_tc_plan
+    fn.argtypes = [_I] * 7 + [ctypes.POINTER(_L)] * 2
+    fn.restype = ctypes.c_int
+    fwd, bwd = _L(), _L()
+    hpr = fn(T, C, H, K, pos_bnd, 1, 1, ctypes.byref(fwd), ctypes.byref(bwd))
+    return hpr, fwd.value, bwd.value
 
 
 def _attn_probs(q, k, xyz, mask, table, num_heads, pos_bnd, use_rpe):
@@ -160,9 +196,8 @@ def _rows_ok(t, body) -> bool:
 
 
 def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
-    """Validates the arguments of a launch and returns the body to run."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {q.device}")
+    """Validates the arguments of a launch and returns the body to run
+    (the shapes first, then the device)."""
     BW, T, C = q.shape
     H = num_heads
     K = xyz.shape[2]
@@ -171,9 +206,9 @@ def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
         if t.shape != (BW, T, C) or t.dtype != q.dtype:
             raise ValueError(f"{what}: {name} is {t.dtype} "
                              f"{tuple(t.shape)}, want {q.dtype} {(BW, T, C)}")
-    if T > 64 or C % H != 0 or K > T:
+    if T > MAX_T or C % H != 0 or K > T:
         raise ValueError(f"{what}: unsupported T={T}, C={C}, "
-                         f"H={H}, K={K} (T <= 64, H | C, K <= T)")
+                         f"H={H}, K={K} (T <= {MAX_T}, H | C, K <= T)")
     if xyz.shape != (BW, 3, K) or xyz.dtype != torch.int32:
         raise ValueError(f"{what}: xyz must be (BW, 3, K) int32")
     if mask.shape != (BW, T) or mask.dtype != torch.int32:
@@ -182,6 +217,8 @@ def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
     if use_rpe and (table.shape != (3 * num, H)
                     or table.dtype != torch.float32):
         raise ValueError(f"{what}: table must be ({3 * num}, {H}) float32")
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
     for t in (q, k, v, xyz, mask, table):
         if t.device != q.device:
             raise ValueError(f"{what}: inputs must be on {q.device}")
@@ -189,7 +226,7 @@ def _check(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe, what):
         if not t.is_contiguous():
             raise ValueError(f"{what}: xyz, mask and table must be "
                              "contiguous")
-    body = attn_body(q.dtype, T, C, H, pos_bnd)
+    body = attn_body(q.dtype, T, C, H, pos_bnd, K)
     if k.stride() != q.stride() or v.stride() != q.stride() \
             or not all(_rows_ok(t, body) for t in (q, k, v)):
         raise ValueError(f"{what}: q, k, v need equal strides with the last "

@@ -52,10 +52,12 @@ def window_valid(node_valid: torch.Tensor, patch_size: int,
 
 def window_stats(xyz: torch.Tensor, node_valid: torch.Tensor, depth: int,
                  patch_size: int, mode: str = "cov") -> torch.Tensor:
-    """Per-window point statistics for ADaPE, (B, W, 9) for 'cov': the
-    mean (x, y, z) then the unbiased covariance entries [xx, xy, xz, yy,
-    yz, zz]. Windows with < 2 valid nodes get zero covariance."""
-    if mode != "cov":
+    """Per-window point statistics for ADaPE, (B, W, 3 / 6 / 9) for mode
+    'pos' / 'var' / 'cov': the mean (x, y, z), then ('var') the unbiased
+    variances [xx, yy, zz] or ('cov') the unbiased covariance entries
+    [xx, xy, xz, yy, yz, zz]. Windows with < 2 valid nodes get zero
+    (co)variance."""
+    if mode not in ("pos", "var", "cov"):
         raise NotImplementedError(f"adape_mode={mode!r}")
     pts = morton.grid_to_points(xyz, depth)           # (B, N, 3)
     pw = data_to_windows(pts, patch_size)             # (B, W, K, 3)
@@ -63,12 +65,15 @@ def window_stats(xyz: torch.Tensor, node_valid: torch.Tensor, depth: int,
     n = mw.sum(dim=-1)                                # (B, W)
     mean = ((pw * mw[..., None]).sum(dim=2)
             / torch.clamp(n, min=1.0)[..., None])
+    if mode == "pos":
+        return mean
     c = (pw - mean[:, :, None, :]) * mw[..., None]
     denom = torch.clamp(n - 1.0, min=1.0)[:, :, None, None]
     cov = torch.einsum("bwki,bwkj->bwij", c, c) / denom
     cov = torch.where((n >= 2)[:, :, None, None], cov, torch.zeros_like(cov))
-    tri = torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
-                       cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], -1)
+    pairs = ((0, 0), (1, 1), (2, 2)) if mode == "var" else (
+        (0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    tri = torch.stack([cov[..., i, j] for i, j in pairs], -1)
     return torch.cat([mean, tri], dim=-1)
 
 

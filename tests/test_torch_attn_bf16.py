@@ -12,9 +12,11 @@ inputs of a seed:
 * backward: dq, dk, dv and the table gradient within
   1e-2 max(1, max |ref|) of jax.vjp of the same op.
 
-``attn_body`` picks the tensor-core body for bf16 with a head width that
-is a multiple of 16 up to 64 and T <= 64, the CUDA-core body otherwise;
-q, k, v may be strided slices of one projection.
+The same holds at T = 65 (64 nodes and a relay slot, patch 64's H-OSA
+windows), with a wholly masked window. ``attn_body`` picks the
+tensor-core body for bf16 with a head width that is a multiple of 16 up
+to 64, T <= 80 and the tiles within shared memory, the CUDA-core body
+otherwise; q, k, v may be strided slices of one projection.
 """
 import jax
 import jax.numpy as jnp
@@ -118,10 +120,87 @@ def test_rounding_is_a_no_op_at_fp32():
     (torch.float32, 49, 256, 16, "cc"),
     (torch.bfloat16, 48, 64, 8, "cc"),        # hd 8
     (torch.bfloat16, 48, 120, 5, "cc"),       # hd 24
-    (torch.bfloat16, 65, 128, 8, "cc"),       # T > 64
+    (torch.bfloat16, 65, 128, 8, "tc"),       # 64 nodes + a relay slot
 ])
 def test_attn_body_by_dtype_and_shape(dtype, T, C, H, want):
     assert kattn.attn_body(dtype, T, C, H, pos_bnd=38) == want
+
+
+@pytest.mark.parametrize("dtype,T,C,H,bnd,want,heads", [
+    (torch.bfloat16, 65, 256, 16, 51, "tc", 1),   # patch-64 H-OSA
+    (torch.bfloat16, 64, 128, 8, 102, "tc", 3),   # patch-64 OctFormer, D 4
+    (torch.bfloat16, 64, 128, 8, 51, "tc", 4),    # patch-64 OctFormer, D 1
+    (torch.bfloat16, 49, 256, 16, 38, "tc", 4),   # Oxford H-OSA
+    (torch.bfloat16, 48, 128, 8, 76, "tc", 4),    # Oxford OctFormer, D 4
+    (torch.float32, 65, 256, 16, 51, "cc", 1),
+    (torch.bfloat16, 81, 128, 8, 51, "cc", 2),    # beyond MAX_T
+])
+def test_attn_body_at_the_shipped_shapes(dtype, T, C, H, bnd, want, heads):
+    """The tensor-core bodies take every bf16 shape of the four shipped
+    configurations: the backward's heads per round shrink (4, 3, 1) until
+    its buffers fit beside the window's tiles."""
+    assert kattn.attn_body(dtype, T, C, H, bnd) == want
+    hpr, fwd, bwd = kattn.tc_plan(T, C, H, bnd)
+    assert hpr == heads
+    if want == "tc":
+        assert max(fwd, bwd) == kattn.tc_smem(T, C, H, bnd) \
+            <= kattn.SMEM_LIMIT
+
+
+def test_shape_check_takes_65_tokens():
+    """The launch check accepts T = 65 (it then refuses the meta device)
+    and refuses T > MAX_T by its shape."""
+    def views(T):
+        m = dict(device="meta")
+        qkv = torch.empty(2, T, 3 * 64, dtype=torch.bfloat16, **m)
+        q, k, v = (qkv[..., i * 64:(i + 1) * 64] for i in range(3))
+        return (q, k, v, torch.empty(2, 3, T - 1, dtype=torch.int32, **m),
+                torch.empty(2, T, dtype=torch.int32, **m),
+                torch.empty(3 * 103, 4, **m), 4, 51)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kattn.launch_fwd(*views(65))
+    with pytest.raises(ValueError, match="unsupported T=81"):
+        kattn.launch_fwd(*views(81))
+
+
+def _inputs65(seed):
+    """Patch-64 H-OSA windows at a narrow width: 64 nodes and one relay
+    slot, hd 16, pos_bnd 51; window 1 partly and window 3 wholly masked
+    (its relay slot too)."""
+    return _inputs(seed, 1, BW=8, K=64, C=64, H=4, bnd=51)
+
+
+def test_bf16_forward_at_65_tokens():
+    q, k, v, _, xyz, mask, table, H, bnd = _inputs65(4)
+    ref = np.asarray(_jax_op(xyz, mask, H, bnd)(
+        _bf16_jax(q), _bf16_jax(k), _bf16_jax(v), jnp.asarray(table)),
+        dtype=np.float32)
+    out = kattn.window_attention(
+        _bf16_torch(q), _bf16_torch(k), _bf16_torch(v),
+        torch.from_numpy(xyz), torch.from_numpy(mask),
+        torch.from_numpy(table), H, bnd).float().numpy()
+    assert out.shape == (8, 65, 64)
+    diff = np.abs(out - ref)
+    assert np.all(diff <= BF16_ULP * np.maximum(1.0, np.abs(ref))), \
+        float(diff.max())
+    assert np.mean(out == ref) >= 0.8, float(np.mean(out == ref))
+    assert np.all(out[mask == 0] == 0.0)
+
+
+def test_bf16_backward_at_65_tokens():
+    q, k, v, g, xyz, mask, table, H, bnd = _inputs65(5)
+    _, vjp = jax.vjp(_jax_op(xyz, mask, H, bnd), _bf16_jax(q), _bf16_jax(k),
+                     _bf16_jax(v), jnp.asarray(table))
+    ref = [np.asarray(r, dtype=np.float32) for r in vjp(_bf16_jax(g))]
+    out = kattn.window_attention_bwd(
+        _bf16_torch(q), _bf16_torch(k), _bf16_torch(v),
+        torch.from_numpy(xyz), torch.from_numpy(mask),
+        torch.from_numpy(table), _bf16_torch(g), H, bnd)
+    for o, r, name in zip(out, ref, ("dq", "dk", "dv", "dtable")):
+        err = float(np.abs(o.float().numpy() - r).max())
+        assert err <= 1e-2 * max(1.0, float(np.abs(r).max())), (name, err)
+    assert np.all(out[0].float().numpy()[mask == 0] == 0.0)
+    assert np.all(np.isfinite(out[3].numpy()))
 
 
 def test_attn_body_refuses_tiles_beyond_shared_memory():

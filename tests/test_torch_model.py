@@ -141,8 +141,8 @@ def test_own_init_is_seeded_and_device_independent():
     dict(input_features="PN"), dict(pooling="OctGeM"),
     dict(conv_norm="batchnorm"), dict(conv_norm="powernorm"),
     dict(xcpe=True), dict(octf_use_rt=True), dict(disable_rt=True),
-    dict(rt_propagation=True), dict(rt_size=2), dict(adape_mode="var"),
-    dict(adape_mode=None), dict(downsample_input_embeddings=False)])
+    dict(rt_propagation=True), dict(rt_size=2),
+    dict(downsample_input_embeddings=False)])
 def test_unsupported_options_raise(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):
