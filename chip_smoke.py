@@ -141,9 +141,14 @@ script exits non-zero without the final line:
    numbers and seconds with the card.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
-   256) on real tables, with K3 on the same inputs) and mosaic_probe
-   constructs (T3's ten kernels), gather (T4's six row gathers through
-   take_rows), attn and band, each with PROBE_REPS repetitions. The
+   256) on real tables, on both cluster sizes, with K3 on the same
+   inputs) and mosaic_probe constructs (T3's ten kernels), gather (T4's
+   six row gathers through take_rows), attn and band, each with
+   PROBE_REPS repetitions. First the built probe libraries' SASS
+   (cuobjdump) must show the redesigned bodies: HMMA (tensor-core mma) in
+   the products' window_product_kernel, no global atomic in
+   dtab_cluster_kernel, bulk copies and cluster barriers in
+   dwconv_resident_kernel. The
    tools hold every kernel against its plain version (take_rows and the
    copy-like constructs bit for bit, dwconv_resident within one bf16 ulp
    / 1e-5 at fp32, the products, softmax and dtab to a relative 1e-5),
@@ -169,7 +174,10 @@ script exits non-zero without the final line:
    launches_entry, and in the dp phase's steps as launches_dp (a) and
    launches_dp_two_ranks (b); then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
-   tools). K1's and K2's rows add the same numbers at
+   tools; T2's row adds its cluster plan (blocks per cluster, channel
+   slice, rows per block, clusters per sample = neighbour-table reads
+   per call, at most 2), cudaOccupancyMaxActiveClusters and the times of
+   both cluster sizes, T3's rows the body each construct ran). K1's and K2's rows add the same numbers at
    cs_wild_places_config's shapes (cs_wild_places), and every model
    kernel's row its launches in the configs phase's runs (per bf16
    forward and train step of CS-Wild-Places and of Wild-Places, and in
@@ -1841,6 +1849,48 @@ def dp_retrieval_worker(cdir):
     return 0
 
 
+# kernel (a substring of its mangled name) -> SASS it must (True) or
+# must not (False) hold: the redesigned probe bodies
+SASS_WANT = {
+    "constructs": {
+        "window_product_kernel": {"HMMA": True},
+        "dtab_cluster_kernel": {"RED.": False, "ATOMG": False,
+                                "ATOM.E": False, "UCGABAR": True}},
+    "gather": {"dwconv_resident_kernel": {"UBLKCP": True, "UCGABAR": True}},
+}
+
+
+def sass_census():
+    """Counts of SASS_WANT's patterns per kernel of the built probe
+    libraries (cuobjdump --dump-sass); raises where one is missing or
+    present against SASS_WANT."""
+    import shutil
+    from hotformerloc_torch.ops.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    census = {}
+    for lib, kernels_ in SASS_WANT.items():
+        sass = subprocess.run([tool, "--dump-sass", str(build._target(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        fn = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = next((k for k in kernels_ if k in ln), None)
+                if fn:
+                    census.setdefault(fn, {p: 0 for p in kernels_[fn]})
+            elif fn:
+                for pat in kernels_[fn]:
+                    census[fn][pat] += pat in ln
+        for k, pats in kernels_.items():
+            got = census.get(k)
+            if got is None or any((got[p] > 0) != want
+                                  for p, want in pats.items()):
+                raise AssertionError(f"{lib}: SASS of {k} is {got}, want "
+                                     f"{pats}")
+    return census
+
+
 def probes_phase(torch):
     """The probe tools end to end on the card (this slice's main path):
     gather_bench, then mosaic_probe constructs, gather, attn and band,
@@ -1876,6 +1926,7 @@ def probes_phase(torch):
                      "window_attn_bwd_tc": n_tc * per},
             "band": {"octree_dwconv": 2 * per, "octree_dwconv_bwd": per}}
     want["attn"] = {k: v for k, v in want["attn"].items() if v}
+    sass = sass_census()
     reps = ["--reps", str(PROBE_REPS)]
     runs = {"gather_bench": lambda: gather_bench.run(["--batch", "8", *reps])}
     for cmd in ("constructs", "gather", "attn", "band"):
@@ -1901,7 +1952,7 @@ def probes_phase(torch):
                                  f" ({retaken[tool]} windows retaken)")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    tools = {"launches_per_tool_run": launches,
+    tools = {"sass": sass, "launches_per_tool_run": launches,
              "retaken_profiler_windows": retaken,
              "tools_seconds": round(time.time() - t0, 1)}
 
@@ -1929,23 +1980,40 @@ def probes_phase(torch):
         units=units + " (library: torch.index_select)")
     dw = entry("dwconv_resident", res["pl_dw"], SOURCES["dwconv_resident"],
                REPLACES["dwconv_resident"])
+    alt, d32 = res["pl_dw_alt_cluster"], res["pl_dw_fp32"]
+    plan = {k: res["pl_dw"][k] for k in (
+        "cluster", "slice", "rows", "clusters_per_sample", "smem",
+        "active_clusters")}
+    # each cluster reads the neighbour-table rows of its channel slice
+    if plan["clusters_per_sample"] > 2:
+        raise AssertionError(f"dwconv_resident reads the table "
+                             f"{plan['clusters_per_sample']} times")
     dw.update(
-        max_abs_err_fp32=res["pl_dw_fp32"]["maxdiff"],
-        k3_ms=res["dw_current"]["device_ms"],
-        nvec1_ms=res["pl_dw_nvec1"]["device_ms"],
-        ms_fp32=res["pl_dw_fp32"]["device_ms"],
+        max_abs_err_fp32=d32["maxdiff"],
+        max_abs_err_alt_cluster=alt["maxdiff"],
+        k3_ms=res["dw_current"]["device_ms"], **plan,
+        table_reads_per_call=plan["clusters_per_sample"],
+        **{f"ms_cluster{ln['cluster']}": ln["device_ms"]
+           for ln in (res["pl_dw"], alt)},
+        **{f"active_clusters_cluster{ln['cluster']}": ln["active_clusters"]
+           for ln in (res["pl_dw"], alt)},
+        ms_fp32=d32["device_ms"],
         k3_ms_fp32=res["dw_current_fp32"]["device_ms"],
-        bound_ms_fp32=res["pl_dw_fp32"]["bound_ms"],
+        bound_ms_fp32=d32["bound_ms"],
+        plan_fp32={k: d32[k] for k in plan},
         shape="T2: x (8, 4224, 256) bf16, neigh (8, 4224, 27)",
-        units=units + " (k3_ms: K3 on the same inputs; nvec1_ms: a slice "
-        "of 8 bf16 channels, three blocks per SM)")
+        units=units + " (k3_ms: K3 on the same inputs, both warm in L2; "
+        "ms_cluster<n>: the same call on clusters of n blocks; plan: "
+        "blocks per cluster, channels per cluster, rows per block; "
+        "active_clusters: cudaOccupancyMaxActiveClusters)")
     line = [take, dw]
     for ln in out["constructs"]:
         name = ln["construct"]
         e = entry(f"construct_{name}", ln, CONSTRUCT_SOURCE,
                   f"{_TL}mosaic_probe.py:41 (_run of k_{name} "
                   f":{CONSTRUCTS[name][2]})")
-        e.update(shape=f"T3: out {ln['out']} {ln['dtype']}", units=units)
+        e.update(body=ln["body"], shape=f"T3: out {ln['out']} {ln['dtype']}",
+                 units=units)
         line.append(e)
     return line, tools
 

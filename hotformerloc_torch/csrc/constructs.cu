@@ -18,16 +18,38 @@
 //   packbias    out[w,t,s] = sum_{d<hd} q[w,t,d] k[w,s,d], fp32 (k_packbias)
 //
 // Every one is far below launch latency at the probe's shapes (at most
-// about 1 MB moved or 10 MFLOP), so each is the plainest correct kernel:
-// one thread per output element, or one warp per softmax row; dtab sums
-// into shared-memory bins with one global atomic per bin, as K2 sums its
-// table gradient. Bound on the H100: bytes for all but the three
-// products, whose operation counts are still below a microsecond.
+// about 1 MB moved or 10 MFLOP). Bound on the H100: bytes for all but the
+// three products, whose operation counts are still below a microsecond.
+//
+// The three products (headloop, packbias, dk) share one tensor-core body,
+// window_product_kernel: a block per 16 output rows of a window, whose
+// head slices of q and k ((T, hd) bf16 each) are staged in shared memory
+// by 16-byte cp.async, T padded to the fragment (16 rows) with zero rows,
+// and multiplied on mma.sync.m16n8k16 (bf16 in, fp32 accumulate), the
+// fragments of window_attn.cu. dk contracts over T, so it takes both
+// operands with ldmatrix.trans. Each head's product sums into its own fp32
+// accumulator, and the heads are added in head order, as k_headloop does.
+// The output rows go through shared memory and out as contiguous stores. A
+// window's whole product is a few dozen mma, so the launch is the cost.
+//
+// dtab runs as one thread-block cluster (dtab_cluster_kernel): each
+// block stages its share of the (idx, g) rows by cp.async, sorts them by
+// bin and sums each bin (within a bin the rows' order follows integer
+// atomics, so the order of those fp32 sums is free), then block r reads
+// slice r of every block's bins through distributed shared memory, adds
+// them in block-rank order and writes its slice once: no float atomics,
+// no memset, one launch.
+//
+// The other six are the plainest correct kernel: one thread per output
+// element, or one warp per softmax row.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 typedef __nv_bfloat16 bf16;
 
@@ -47,29 +69,169 @@ inline unsigned blocks_for(long long n, int threads) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;      \
        i < (n); i += (long long)gridDim.x * blockDim.x)
 
-// out[w,t,s] over (WT, Tq, Tk): nh head slices of hd lanes from column 0.
-template <int NH>
-__global__ void qk_heads_kernel(const bf16* __restrict__ q,
-                                const bf16* __restrict__ k,
-                                float* __restrict__ out, int WT, int T, int C,
-                                int hd) {
-  const long long n = (long long)WT * T * T;
-  GRID_STRIDE(i, n) {
-    const int s = (int)(i % T);
-    const int t = (int)((i / T) % T);
-    const long long w = i / ((long long)T * T);
-    const bf16* qr = q + (w * T + t) * C;
-    const bf16* kr = k + (w * T + s) * C;
-    float acc = 0.f;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      float part = 0.f;
-      for (int d = 0; d < hd; ++d)
-        part = fmaf(bf(qr[h * hd + d]), bf(kr[h * hd + d]), part);
-      acc += part;
-    }
-    out[i] = acc;
+// PTX helpers: 16-byte cp.async, ldmatrix and mma.sync.m16n8k16 (row.col,
+// bf16 in, fp32 accumulate). Fragment layouts (g = lane / 4, c = lane % 4):
+// A rows g and g + 8, k columns 2c, 2c + 1 (regs 0, 1) and 2c + 8, 2c + 9
+// (regs 2, 3); B k rows 2c.. and 2c + 8.., column g; C rows g (regs 0, 1)
+// and g + 8 (regs 2, 3), columns 2c, 2c + 1.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most n of this thread's committed groups are pending
+template <int n> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int kProductWarps = 4;
+
+// Stages columns [0, width) of rows [0, T) of a (T, C) bf16 tile into
+// shared rows of ld elements by 16-byte cp.async; rows [T, Tp) are zeroed.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int T,
+                                           int Tp, int C, int width,
+                                           int ld) {
+  const int cpr = width / 8;
+  for (int i = threadIdx.x; i < Tp * cpr; i += blockDim.x) {
+    const int t = i / cpr, c = (i - t * cpr) * 8;
+    if (t < T)
+      cp_async16(dst + t * ld + c, src + (size_t)t * C + c);
+    else
+      *reinterpret_cast<uint4*>(dst + t * ld + c) = make_uint4(0, 0, 0, 0);
   }
+}
+
+// The products of (WT, T, C) bf16 q and k, an (M, M) fp32 output per
+// window w:
+//   kContractT false (M = T): out[w,i,j] = sum_{h<nh} sum_{d<hd}
+//     q[w,i,h*hd+d] k[w,j,h*hd+d];
+//   kContractT true (M = hd, nh = 1): out[w,a,b] = sum_t q[w,t,a] k[w,t,b].
+// grid (WT, ceil(M / 16)): block (w, y) computes output rows [16y, 16y +
+// 16) of window w, a warp a 16 x 16 tile at a time. Dynamic shared memory:
+// the staged q rows (16, or all Tp when contracting over T) and k rows
+// (Tp) of nh * hd + 8 bf16 (the pad keeps ldmatrix free of bank
+// conflicts), then the 16 x M fp32 output rows, written out contiguously.
+template <bool kContractT>
+__global__ void __launch_bounds__(kProductWarps * 32)
+window_product_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      float* __restrict__ out, int T, int C, int hd,
+                      int nh) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Tp = (T + 15) & ~15;
+  const int ld = nh * hd + 8;
+  const int M = kContractT ? hd : T;
+  const int m0 = 16 * blockIdx.y;
+  const int qrows = kContractT ? Tp : 16;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + qrows * ld;
+  float* os = reinterpret_cast<float*>(ks + Tp * ld);
+  const size_t base = (size_t)blockIdx.x * T * C;
+  if (kContractT)
+    stage_rows(qs, q + base, T, Tp, C, hd, ld);
+  else
+    stage_rows(qs, q + base + (size_t)m0 * C, min(16, T - m0), 16, C,
+               nh * hd, ld);
+  stage_rows(ks, k + base, T, Tp, C, nh * hd, ld);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int steps = kContractT ? Tp / 16 : hd / 16;
+  for (int n0 = 16 * warp; n0 < M; n0 += 16 * kProductWarps) {
+    float acc[2][4] = {};
+    for (int h = 0; h < nh; ++h) {
+      float part[2][4] = {};
+      for (int kk = 0; kk < steps; ++kk) {
+        uint32_t a[4], b[4];
+        if (kContractT) {
+          // A[a][t] = q[t][a] and B[t][b] = k[t][b]: transposed 8 x 8
+          // blocks of the staged rows
+          const int mi = lane >> 3;
+          ldsm_x4_t(a, qs + (16 * kk + (lane & 7) + 8 * (mi >> 1)) * ld +
+                           m0 + 8 * (mi & 1));
+          ldsm_x4_t(b, ks + (16 * kk + (lane & 7) + 8 * (mi & 1)) * ld +
+                           n0 + 8 * (mi >> 1));
+        } else {
+          const int col = h * hd + 16 * kk;
+          ldsm_x4(a, qs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + col +
+                         8 * (lane >> 4));
+          ldsm_x4(b, ks + (n0 + (lane & 7) + 8 * (lane >> 4)) * ld + col +
+                         8 * ((lane >> 3) & 1));
+        }
+        mma16816(part[0], a, b[0], b[1]);
+        mma16816(part[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 8 * j + 2 * c + (e & 1);
+        if (col < M) os[(g + 8 * (e >> 1)) * M + col] = acc[j][e];
+      }
+  }
+  __syncthreads();
+  const int n = min(16, M - m0) * M;
+  float* ob = out + ((size_t)blockIdx.x * M + m0) * M;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) ob[i] = os[i];
+}
+
+template <bool kContractT>
+cudaError_t launch_product(const void* q, const void* k, void* out, int WT,
+                           int T, int C, int hd, int nh, cudaStream_t s) {
+  if (WT < 1 || T < 1 || hd < 16 || hd % 16 || C % 8 || nh * hd > C ||
+      (kContractT && nh != 1))
+    return cudaErrorInvalidValue;
+  const int Tp = (T + 15) & ~15;
+  const int M = kContractT ? hd : T;
+  const size_t smem = sizeof(bf16) * (size_t)((kContractT ? Tp : 16) + Tp) *
+                          (nh * hd + 8) +
+                      sizeof(float) * 16 * (size_t)M;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_product_kernel<kContractT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((unsigned)WT, (unsigned)((M + 15) / 16));
+  window_product_kernel<kContractT><<<grid, kProductWarps * 32, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<float*>(out), T, C, hd, nh);
+  return cudaGetLastError();
 }
 
 __global__ void reshape_kernel(const int* __restrict__ idx,
@@ -89,23 +251,109 @@ __global__ void onehot4d_kernel(const int* __restrict__ idx,
   }
 }
 
-// out must be zero on entry. Dynamic shared memory: R * H fp32 bins.
-__global__ void dtab_kernel(const int* __restrict__ idx,
-                            const float* __restrict__ g,
-                            float* __restrict__ out, long long n, int H,
-                            int R) {
-  extern __shared__ float bins[];
-  for (int i = threadIdx.x; i < R * H; i += blockDim.x) bins[i] = 0.f;
+constexpr int kMaxCluster = 16;      // non-portable cluster size limit
+
+// Dynamic shared memory of a dtab block: its R * H fp32 bins (cluster
+// slices of chunk bins), R + 1 row counts and R cursors, then its share of
+// per rows of idx, their order by bin, and g; each part padded to 16
+// bytes.
+inline int dtab_chunk(int H, int R, int cluster) {
+  return (int)((((long long)R * H + cluster - 1) / cluster + 3) & ~3LL);
+}
+inline size_t dtab_smem(int H, int R, int per, int cluster) {
+  return sizeof(float) * ((size_t)cluster * dtab_chunk(H, R, cluster) +
+                          ((2 * (size_t)R + 1 + 3) & ~(size_t)3) +
+                          (size_t)per * (2 + H));
+}
+
+// count 4-byte words from global src (16-byte aligned) to shared dst:
+// 16-byte cp.async, the tail word by word.
+__device__ __forceinline__ void stage_words(void* dst, const void* src,
+                                            int count) {
+  const int nv = count / 4;
+  for (int i = threadIdx.x; i < nv; i += blockDim.x)
+    cp_async16(static_cast<uint4*>(dst) + i,
+               static_cast<const uint4*>(src) + i);
+  for (int i = 4 * nv + threadIdx.x; i < count; i += blockDim.x)
+    static_cast<uint32_t*>(dst)[i] = static_cast<const uint32_t*>(src)[i];
+}
+
+// One cluster. Block r stages rows [r*per, (r+1)*per) of (idx, g) by
+// cp.async, sorts them by bin (a counting sort on shared-memory integer
+// atomics) and sums each of its R * H bins over its rows, one thread per
+// bin. Then it reads bins slice r of every block through distributed
+// shared memory, sums them in block-rank order and writes that slice of
+// out once. per is a multiple of 4, so each share starts 16-byte aligned.
+__global__ void __launch_bounds__(1024)
+dtab_cluster_kernel(const int* __restrict__ idx, const float* __restrict__ g,
+                    float* __restrict__ out, int n, int H, int R, int per,
+                    int chunk) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int nb = R * H;
+  float* bins = reinterpret_cast<float*>(smem_raw);     // cs * chunk
+  int* start = reinterpret_cast<int*>(bins + cs * chunk);  // R + 1
+  int* cursor = start + R + 1;                           // R
+  int* is = start + ((2 * R + 1 + 3) & ~3);              // per
+  int* order = is + per;                                 // per
+  float* gs = reinterpret_cast<float*>(order + per);     // per * H
+  const int e0 = rank * per;
+  const int rows = max(0, min(per, n - e0));
+  // two cp.async groups: the indices, which the sort needs, then g,
+  // which arrives while the rows are sorted
+  stage_words(is, idx + e0, rows);
+  cp_async_commit();
+  stage_words(gs, g + (size_t)e0 * H, rows * H);
+  cp_async_commit();
+  for (int i = threadIdx.x; i <= R; i += blockDim.x) start[i] = 0;
+  cp_async_wait<1>();
   __syncthreads();
-  GRID_STRIDE(i, n * H) {
-    const long long e = i / H;
-    const int h = (int)(i - e * H);
-    const int r = idx[e];
-    if (r >= 0 && r < R) atomicAdd(&bins[r * H + h], round_bf16(g[i]));
+  for (int e = threadIdx.x; e < rows; e += blockDim.x) {
+    const int r = is[e];
+    if (r >= 0 && r < R) atomicAdd(&start[r + 1], 1);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < R * H; i += blockDim.x)
-    if (bins[i] != 0.f) atomicAdd(&out[i], bins[i]);
+  if (threadIdx.x < 32) {              // start[r] = rows of bins below r
+    int carry = 0;
+    for (int i0 = 1; i0 <= R; i0 += 32) {
+      const int i = i0 + (int)threadIdx.x;
+      int v = i <= R ? start[i] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if ((int)threadIdx.x >= o) v += u;
+      }
+      if (i <= R) start[i] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < R; i += blockDim.x) cursor[i] = start[i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < rows; e += blockDim.x) {
+    const int r = is[e];
+    if (r >= 0 && r < R) order[atomicAdd(&cursor[r], 1)] = e;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+    const int r = i / H, h = i - r * H;
+    float acc = 0.f;
+    for (int p = start[r]; p < start[r + 1]; ++p)
+      acc += round_bf16(gs[order[p] * H + h]);
+    bins[i] = acc;
+  }
+  cluster.sync();                      // every block's bins are complete
+  for (int o = threadIdx.x; o < chunk; o += blockDim.x) {
+    const int i = rank * chunk + o;
+    if (i >= nb) break;
+    float acc = 0.f;
+    for (int s = 0; s < cs; ++s) acc += cluster.map_shared_rank(bins, s)[i];
+    out[i] = acc;
+  }
+  cluster.sync();                      // keep the bins while others read
 }
 
 __global__ void pad_kernel(const float* __restrict__ in,
@@ -166,22 +414,6 @@ __global__ void slicestore_kernel(const bf16* __restrict__ q,
   }
 }
 
-__global__ void dk_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          float* __restrict__ out, int WT, int T, int C,
-                          int hd) {
-  const long long n = (long long)WT * hd * hd;
-  GRID_STRIDE(i, n) {
-    const int b = (int)(i % hd);
-    const int a = (int)((i / hd) % hd);
-    const long long w = i / ((long long)hd * hd);
-    float acc = 0.f;
-    for (int t = 0; t < T; ++t)
-      acc = fmaf(bf(q[(w * T + t) * C + a]), bf(k[(w * T + t) * C + b]), acc);
-    out[i] = acc;
-  }
-}
-
 }  // namespace
 
 // Every entry point launches on `stream` and returns cudaError_t.
@@ -190,12 +422,8 @@ __global__ void dk_kernel(const bf16* __restrict__ q,
 extern "C" int construct_headloop(const void* q, const void* k, void* out,
                                   int WT, int T, int C, int hd,
                                   void* stream) {
-  const long long n = (long long)WT * T * T;
-  qk_heads_kernel<2><<<blocks_for(n, 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<float*>(out), WT, T, C, hd);
-  return cudaGetLastError();
+  return launch_product<false>(q, k, out, WT, T, C, hd, 2,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // idx: n int32; out: n fp32.
@@ -217,18 +445,46 @@ extern "C" int construct_onehot4d(const void* idx, const void* tab, void* out,
   return cudaGetLastError();
 }
 
-// idx: n int32; g: (n, H) fp32; out: (R, H) fp32, zero on entry.
+// idx: n int32; g: (n, H) fp32, both 16-byte aligned; out: (R, H) fp32,
+// written whole. One cluster of `cluster` blocks of `threads` threads,
+// each holding per rows (a multiple of 4 with cluster * per >= n); its
+// bins and rows must fit a block's opt-in shared memory (the wrapper's
+// dtab_plan).
 extern "C" int construct_dtab(const void* idx, const void* g, void* out,
-                              long long n, int H, int R, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)R * H;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  long long blocks = (n * H + 1023) / 1024;
-  if (blocks > 132) blocks = 132;                     // one bin set per SM
-  dtab_kernel<<<(unsigned)(blocks < 1 ? 1 : blocks), 256, smem,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(g),
-      static_cast<float*>(out), n, H, R);
-  return cudaGetLastError();
+                              long long n, int H, int R, int cluster,
+                              int threads, int per, void* stream) {
+  if (n < 1 || H < 1 || R < 1 || n * H >= (1LL << 31) || cluster < 1 ||
+      cluster > kMaxCluster || threads < H || threads > 1024 ||
+      threads % 32 || per % 4 || (long long)per * cluster < n)
+    return cudaErrorInvalidValue;
+  const int chunk = dtab_chunk(H, R, cluster);
+  const size_t smem = dtab_smem(H, R, per, cluster);
+  cudaError_t e = cudaFuncSetAttribute(
+      dtab_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(dtab_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = (unsigned)cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, dtab_cluster_kernel,
+                         static_cast<const int*>(idx),
+                         static_cast<const float*>(g),
+                         static_cast<float*>(out), (int)n, H, R, per,
+                         chunk);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // in: (WT, K, K) fp32; out: (WT, K+G, K+G) fp32.
@@ -272,22 +528,14 @@ extern "C" int construct_slicestore(const void* q, void* out, long long rows,
 // q, k: (WT, T, C) bf16; out: (WT, hd, hd) fp32.
 extern "C" int construct_dk(const void* q, const void* k, void* out, int WT,
                             int T, int C, int hd, void* stream) {
-  const long long n = (long long)WT * hd * hd;
-  dk_kernel<<<blocks_for(n, 256), 256, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<float*>(out), WT, T, C, hd);
-  return cudaGetLastError();
+  return launch_product<true>(q, k, out, WT, T, C, hd, 1,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // q, k: (WT, T, C) bf16; out: (WT, T, T) fp32 over the first hd lanes.
 extern "C" int construct_packbias(const void* q, const void* k, void* out,
                                   int WT, int T, int C, int hd,
                                   void* stream) {
-  const long long n = (long long)WT * T * T;
-  qk_heads_kernel<1><<<blocks_for(n, 256), 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<float*>(out), WT, T, C, hd);
-  return cudaGetLastError();
+  return launch_product<false>(q, k, out, WT, T, C, hd, 1,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -113,6 +113,16 @@ def stream_ptr(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+SMEM_OPTIN = 232448          # H100: opt-in dynamic shared memory per block
+
+
+def smem_optin(device) -> int:
+    """A block's opt-in dynamic shared memory on ``device``'s card."""
+    import torch
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", SMEM_OPTIN)
+
+
 DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 

@@ -6,7 +6,10 @@ the TPU's compiler accepts. Each wrapper here launches one CUDA kernel
 that computes the construct's function with its roundings, on CUDA
 tensors, and runs the ``*_reference`` plain version beside it on CPU
 tensors. ``CONSTRUCTS`` maps each name to (wrapper, plain version, line
-of the TPU kernel body in mosaic_probe.py).
+of the TPU kernel body in mosaic_probe.py); ``BODIES`` names the kernel
+body each construct runs on the card: the three products share one
+tensor-core body ("tc"), dtab runs as one thread-block cluster
+("cluster"), the other six are one thread per output ("simt").
 """
 from __future__ import annotations
 
@@ -48,6 +51,20 @@ def _on_card(name, *ts, dtypes):
 
 
 _BF, _F32, _I32 = torch.bfloat16, torch.float32, torch.int32
+DTAB_CLUSTER = 16             # dtab: blocks of its cluster (a non-portable
+DTAB_THREADS = 1024           # size) and threads per block
+
+
+def _check_product(name, q, k, hd, width):
+    """The tensor-core body's shapes: q, k (WT, T, C) alike, 16-byte
+    aligned rows, hd a multiple of 16 and ``width`` lanes within C."""
+    if q.dim() != 3 or k.shape != q.shape or q.shape[2] % 8 \
+            or hd % 16 or width > q.shape[2] \
+            or q.data_ptr() % 16 or k.data_ptr() % 16:
+        raise ValueError(f"construct_{name}: want q, k (WT, T, C) alike, "
+                         f"16-byte aligned, C % 8 == 0, hd % 16 == 0 and "
+                         f"{width} lanes <= C; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, hd={hd}")
 
 
 # -- k_headloop: two 16-lane head slices, fp32 per-head products ------------
@@ -67,9 +84,8 @@ def headloop(q, k, hd=16):
     (WT, T, C) bf16 -> (WT, T, T) fp32."""
     if not _on_card("headloop", q, k, dtypes=(_BF, _BF)):
         return headloop_reference(q, k, hd)
+    _check_product("headloop", q, k, hd, 2 * hd)
     WT, T, C = q.shape
-    if k.shape != q.shape or C < 2 * hd:
-        raise ValueError("construct_headloop: want q, k (WT, T, C >= 2 hd)")
     out = torch.empty((WT, T, T), dtype=_F32, device=q.device)
     _launch("headloop", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
             out.data_ptr(), WT, T, C, hd)
@@ -124,18 +140,44 @@ def dtab_reference(idx, g, R):
     return out
 
 
+def dtab_plan(n, H, R, smem=build.SMEM_OPTIN) -> dict:
+    """dtab's launch on the card: one cluster of ``DTAB_CLUSTER`` blocks
+    of ``DTAB_THREADS``, each staging ``rows_per_block`` of the n (idx,
+    g) rows (a multiple of 4, so each share starts 16-byte aligned),
+    sorting them by bin and summing them into R * H fp32 bins (padded to
+    cluster slices of a multiple of 4 bins, which the blocks add in rank
+    order);
+    bins, sort tables and rows must fit ``smem`` bytes (the card's opt-in
+    shared memory per block). Raises when they do not."""
+    cs = DTAB_CLUSTER
+    per = -(-n // cs) + 3 & ~3
+    chunk = -(-R * H // cs) + 3 & ~3
+    need = 4 * (cs * chunk + (2 * R + 1 + 3 & ~3) + per * (2 + H))
+    if not (1 <= n and n * H < 2 ** 31 and 1 <= H <= DTAB_THREADS
+            and R >= 1 and need <= smem):
+        raise ValueError(f"construct_dtab: {R} x {H} fp32 bins and "
+                         f"{per} rows a block ({need} bytes) do not fit "
+                         f"{smem} bytes of shared memory, or H > "
+                         f"{DTAB_THREADS}")
+    return {"cluster": cs, "threads": DTAB_THREADS, "rows_per_block": per,
+            "smem": need}
+
+
 def dtab(idx, g, R):
     """out[r, h] = sum over idx[...] == r of float(bf16(g[..., h])), fp32;
-    idx int32 (...), g fp32 (..., H)."""
+    idx int32 (...), g fp32 (..., H); launched as ``dtab_plan`` says."""
     if not _on_card("dtab", idx, g, dtypes=(_I32, _F32)):
         return dtab_reference(idx, g, R)
     H = g.shape[-1]
-    if g.shape[:-1] != idx.shape or R * H * 4 > 48 * 1024:
-        raise ValueError("construct_dtab: want g (*idx.shape, H) and "
-                         "R * H * 4 <= 48 KB")
-    out = torch.zeros((R, H), dtype=_F32, device=g.device)
-    _launch("dtab", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
-            g.data_ptr(), out.data_ptr(), idx.numel(), H, R)
+    if g.shape[:-1] != idx.shape or idx.data_ptr() % 16 \
+            or g.data_ptr() % 16:
+        raise ValueError("construct_dtab: want g (*idx.shape, H), both "
+                         "16-byte aligned")
+    plan = dtab_plan(idx.numel(), H, R, build.smem_optin(g.device))
+    out = torch.empty((R, H), dtype=_F32, device=g.device)
+    _launch("dtab", [_P] * 3 + [_L] + [_I] * 5, idx, idx.data_ptr(),
+            g.data_ptr(), out.data_ptr(), idx.numel(), H, R,
+            plan["cluster"], plan["threads"], plan["rows_per_block"])
     return out
 
 
@@ -223,9 +265,8 @@ def dk_reference(q, k, hd=16):
 def dk(q, k, hd=16):
     if not _on_card("dk", q, k, dtypes=(_BF, _BF)):
         return dk_reference(q, k, hd)
+    _check_product("dk", q, k, hd, hd)
     WT, T, C = q.shape
-    if k.shape != q.shape or hd > C:
-        raise ValueError("construct_dk: want q, k (WT, T, C >= hd)")
     out = torch.empty((WT, hd, hd), dtype=_F32, device=q.device)
     _launch("dk", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
             out.data_ptr(), WT, T, C, hd)
@@ -242,9 +283,8 @@ def packbias_reference(q, k, hd=16):
 def packbias(q, k, hd=16):
     if not _on_card("packbias", q, k, dtypes=(_BF, _BF)):
         return packbias_reference(q, k, hd)
+    _check_product("packbias", q, k, hd, hd)
     WT, T, C = q.shape
-    if k.shape != q.shape or hd > C:
-        raise ValueError("construct_packbias: want q, k (WT, T, C >= hd)")
     out = torch.empty((WT, T, T), dtype=_F32, device=q.device)
     _launch("packbias", [_P] * 3 + [_I] * 4, q, q.data_ptr(), k.data_ptr(),
             out.data_ptr(), WT, T, C, hd)
@@ -263,3 +303,5 @@ CONSTRUCTS = {
     "dk": (dk, dk_reference, 136),
     "packbias": (packbias, packbias_reference, 146),
 }
+BODIES = {name: "simt" for name in CONSTRUCTS}
+BODIES.update(headloop="tc", packbias="tc", dk="tc", dtab="cluster")

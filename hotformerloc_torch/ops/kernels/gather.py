@@ -8,8 +8,10 @@ layout. A missing tap (-1) reads row 0, as k_take does; the flat
 ``ops/conv._gather_rows`` zeroes it instead.
 
 ``dwconv_resident`` replaces gather_bench.py:k_dw (T2): the depthwise
-octree conv of K3 with x resident in on-chip memory. Its plain version
-is ``ops/conv.octree_dwconv``.
+octree conv of K3 with x resident in on-chip memory, here the shared
+memory of a thread-block cluster (``resident_plan`` picks the cluster
+size, channel slice and rows per block). Its plain version is
+``ops/conv.octree_dwconv``.
 
 On CUDA tensors the wrappers launch the kernels; on CPU tensors they run
 the plain versions beside them. Forward only: the probes have no
@@ -27,7 +29,12 @@ from hotformerloc_torch.ops.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SMEM_OPTIN = 232448          # H100: dynamic shared memory per block
+K_TAPS = 27
+# dwconv_resident's cluster sizes, the default first: 16 blocks (a
+# non-portable cluster) hold a sample's 256 bf16 channels, 8 (the
+# portable limit) half of them
+RESIDENT_CLUSTERS = (16, 8)
+MAX_CLUSTER = 16
 
 
 def take_rows_reference(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -88,39 +95,72 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out if batched else out[0]
 
 
-def resident_slice(N: int, C: int, elem_size: int,
-                   smem: int = _SMEM_OPTIN, nvec=None) -> int:
-    """16-byte vectors of channels per block slice of ``dwconv_resident``:
-    ``nvec`` if given, else the widest of 2 and 1, that divides C and
-    whose N rows plus the slice's fp32 weights fit ``smem`` bytes of
-    shared memory. Raises when none does."""
-    per_vec = 16 // elem_size
-    for n in ((nvec,) if nvec else (2, 1)):
-        need = N * n * 16 + 4 * 27 * n * per_vec
-        if C % (n * per_vec) == 0 and need <= smem:
-            return n
-    raise ValueError(f"dwconv_resident: no channel slice of N={N} rows "
-                     f"fits {smem} bytes of shared memory with C={C}")
+def resident_plan(N: int, C: int, elem_size: int,
+                  smem: int = build.SMEM_OPTIN, cluster=None) -> dict:
+    """``dwconv_resident``'s plan for x (B, N, C) of ``elem_size``-byte
+    elements: {"cluster": blocks per cluster, "slice": channels a cluster
+    holds, "rows": rows per block, "smem": a block's shared-memory bytes,
+    "clusters_per_sample"}. Tries ``cluster`` if given, else
+    ``RESIDENT_CLUSTERS`` in order, and takes the first size with a
+    channel slice (the widest dividing C in whole 16-byte vectors) whose
+    rows of x, weights, valid-tap lists and mbarrier fit ``smem`` bytes
+    (the card's opt-in shared memory per block). Rows per block are a
+    multiple of 4. Raises when none fits."""
+    for cs in ((cluster,) if cluster else RESIDENT_CLUSTERS):
+        if not 1 <= cs <= MAX_CLUSTER or N < 1:
+            raise ValueError(f"dwconv_resident: cluster of {cs} blocks "
+                             f"(1 to {MAX_CLUSTER}) over N={N} rows")
+        rows = -(-N // cs) + 3 & ~3
+        for S in range(C, 0, -1):
+            need = (rows * S * elem_size + K_TAPS * S * elem_size
+                    + 4 * (K_TAPS + 1) * rows + 8)
+            if C % S == 0 and S * elem_size % 16 == 0 and need <= smem:
+                return {"cluster": cs, "slice": S, "rows": rows,
+                        "smem": need, "clusters_per_sample": C // S}
+    raise ValueError(f"dwconv_resident: no cluster plan of N={N} rows "
+                     f"and C={C} channels fits {smem} bytes of shared "
+                     f"memory per block")
+
+
+def _dwconv_lib(name, argtypes):
+    fn = getattr(build.library("gather"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def resident_active_clusters(plan: dict, N: int, C: int, dtype,
+                             device) -> int:
+    """cudaOccupancyMaxActiveClusters of ``plan`` on ``device``'s card:
+    how many of its clusters run at once."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _dwconv_lib("dwconv_resident_active_clusters",
+                          [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])(
+            N, C, plan["cluster"], plan["slice"], plan["rows"],
+            build.DTYPE_CODES[str(dtype)], ctypes.byref(count))
+    build.check(err, "dwconv_resident_active_clusters")
+    return count.value
 
 
 def dwconv_resident(x: torch.Tensor, neigh: torch.Tensor,
-                    w: torch.Tensor, nvec=None) -> torch.Tensor:
+                    w: torch.Tensor, cluster=None) -> torch.Tensor:
     """out[b,n,c] = sum_k w[k,c] * x[b, neigh[b,n,k], c], missing tap (-1)
     = 0, fp32 accumulation; x: (B, N, C) float32/bfloat16, neigh:
     (B, N, 27) int32, w: (27, C) (cast to x's dtype). The same function
-    as ``ops/conv.octree_dwconv``, its plain version. ``nvec`` sets the
-    block's channel slice in 16-byte vectors (``resident_slice``); a
-    narrower slice fits more blocks on an SM."""
+    as ``ops/conv.octree_dwconv``, its plain version. ``cluster`` sets the
+    blocks per cluster (``resident_plan``; by default the first of
+    ``RESIDENT_CLUSTERS`` that fits)."""
     if x.device.type == "cpu":
         return plain.octree_dwconv(x, neigh, w.to(x.dtype))
     _check_device(x, "dwconv_resident")
-    if x.dim() != 3 or neigh.shape != (*x.shape[:2], 27) \
+    if x.dim() != 3 or neigh.shape != (*x.shape[:2], K_TAPS) \
             or neigh.dtype != torch.int32:
         raise ValueError(f"dwconv_resident: want x (B, N, C) and neigh "
                          f"(B, N, 27) int32, got {tuple(x.shape)} and "
                          f"{tuple(neigh.shape)} {neigh.dtype}")
     B, N, C = x.shape
-    if w.shape != (27, C):
+    if w.shape != (K_TAPS, C):
         raise ValueError(f"dwconv_resident: w must be (27, {C}), got "
                          f"{tuple(w.shape)}")
     code = build.dtype_code(x)
@@ -129,17 +169,15 @@ def dwconv_resident(x: torch.Tensor, neigh: torch.Tensor,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("dwconv_resident: inputs must be contiguous "
                              f"and on {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError("dwconv_resident: x must be 16-byte aligned")
-    props = torch.cuda.get_device_properties(x.device)
-    smem = getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
-    nvec = resident_slice(N, C, x.element_size(), smem, nvec)
+    if x.data_ptr() % 16 or wc.data_ptr() % 16:
+        raise ValueError("dwconv_resident: x and w must be 16-byte aligned")
+    plan = resident_plan(N, C, x.element_size(), build.smem_optin(x.device),
+                         cluster)
     out = torch.empty_like(x)
-    fn = build.library("gather").dwconv_resident
-    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), neigh.data_ptr(), wc.data_ptr(), out.data_ptr(),
-             B, N, C, nvec, code, build.stream_ptr(x.device))
+    err = _dwconv_lib("dwconv_resident", [_P] * 4 + [_I] * 7 + [_P])(
+        x.data_ptr(), neigh.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N,
+        C, plan["cluster"], plan["slice"], plan["rows"], code,
+        build.stream_ptr(x.device))
     build.check(err, "dwconv_resident")
     kernels.LAUNCHES["dwconv_resident"] += 1
     return out

@@ -19,9 +19,13 @@ taps) and one JSON line per variant:
   pl_take         take_rows, the counterpart of the TPU's k_take: tap 0
                   of every node, a missing tap read as row 0
   pl_dw           dwconv_resident, the counterpart of the TPU's k_dw:
-                  the depthwise conv with x resident in shared memory;
-                  pl_dw_nvec1 with the narrower channel slice (three
-                  blocks per SM instead of one), pl_dw_fp32 at fp32
+                  the depthwise conv with x resident in the shared memory
+                  of a thread-block cluster, on its default plan;
+                  pl_dw_alt_cluster on the other cluster size of
+                  RESIDENT_CLUSTERS, pl_dw_fp32 at fp32 (default plan).
+                  Each line gives its plan (cluster, slice, rows,
+                  clusters_per_sample, smem) and, on the card, how many
+                  of its clusters the card runs at once (active_clusters)
   onehot_window   the banded one-hot formulation (plain einsums, as it
                   was plain XLA on the TPU); its escape fraction printed
 
@@ -261,20 +265,31 @@ def run(argv=None) -> dict:
            yardsticks(dev, args.reps,
                       lambda: kgather.take_rows_reference(x, tap0), lib,
                       (nbytes, 0), "bf16"))
+    def dw_plan(xx, cluster=None):
+        plan = kgather.resident_plan(N, C, xx.element_size(),
+                                     cluster=cluster)
+        active = (kgather.resident_active_clusters(plan, N, C, xx.dtype, dev)
+                  if dev.type == "cuda" else None)
+        return {**plan, "active_clusters": active}
+
     record("pl_dw", lambda: kgather.dwconv_resident(x, nj, w),
            (check_close, kgather.dwconv_resident(x, nj, w), ref),
-           yardsticks(dev, args.reps, lambda: plain.octree_dwconv(x, nj, w),
-                      None, dw_cost(x), "bf16"))
-    # the narrower slice: half the shared memory per block, so three
-    # blocks (48 warps) share an SM where the default slice has one
-    record("pl_dw_nvec1", lambda: kgather.dwconv_resident(x, nj, w, nvec=1),
-           (check_close, kgather.dwconv_resident(x, nj, w, nvec=1), ref),
-           {k: results["pl_dw"][k] for k in ("bound_ms", "bound_by")})
+           {**dw_plan(x), **yardsticks(
+               dev, args.reps, lambda: plain.octree_dwconv(x, nj, w), None,
+               dw_cost(x), "bf16")})
+    alt = next(c for c in kgather.RESIDENT_CLUSTERS
+               if c != results["pl_dw"]["cluster"])
+    record("pl_dw_alt_cluster",
+           lambda: kgather.dwconv_resident(x, nj, w, cluster=alt),
+           (check_close, kgather.dwconv_resident(x, nj, w, cluster=alt),
+            ref),
+           {**dw_plan(x, alt),
+            **{k: results["pl_dw"][k] for k in ("bound_ms", "bound_by")}})
     record("pl_dw_fp32", lambda: kgather.dwconv_resident(x32, nj, w32),
            (check_close, kgather.dwconv_resident(x32, nj, w32), ref32),
-           yardsticks(dev, args.reps,
-                      lambda: plain.octree_dwconv(x32, nj, w32), None,
-                      dw_cost(x32), "fp32"))
+           {**dw_plan(x32), **yardsticks(
+               dev, args.reps, lambda: plain.octree_dwconv(x32, nj, w32),
+               None, dw_cost(x32), "fp32")})
 
     S, HR = ONEHOT_TILE, ONEHOT_HALO
     W = S + 2 * HR

@@ -21,7 +21,8 @@ check raises and the tool exits non-zero: nothing is caught. ``--out``
 writes mosaic_probe_<subcommand>.json there; nothing else is written.
 
   constructs  the ten construct kernels of ops/kernels/constructs.py
-              (WT=8, T=49, K=48, C=256, H=16, hd=16, R=231)
+              (WT=8, T=49, K=48, C=256, H=16, hd=16, R=231); each line
+              names the kernel body it runs on the card (``body``)
   gather      take_rows at the JAX tool's six row-gather cases, against
               the numpy oracle x[idx]
   attn        K1 forward, and K1 + K2 for grad(sum(out^2)) with respect
@@ -180,7 +181,7 @@ def construct_library(name: str, args: tuple):
 
 
 def constructs(dev, reps):
-    from hotformerloc_torch.ops.kernels.constructs import CONSTRUCTS
+    from hotformerloc_torch.ops.kernels.constructs import BODIES, CONSTRUCTS
 
     lines = []
     for name, args in construct_inputs().items():
@@ -192,7 +193,7 @@ def constructs(dev, reps):
         if lib is not None:              # the yardstick computes the same
             check_construct(name, lib().reshape(out.shape), out)
         lines.append({"probe": CONSTRUCT_PROBES[name][0], "construct": name,
-                      "ok": True, "maxdiff": err,
+                      "body": BODIES[name], "ok": True, "maxdiff": err,
                       "out": list(out.shape),
                       "dtype": str(out.dtype).split(".")[1],
                       **timing(dev, lambda: fn(*a), reps),

@@ -6,7 +6,9 @@ held against the JAX package:
 * take_rows (T1, T4) equals the TPU k_take body's expression
   (take_along_axis on max(neigh[..., 0], 0)) and numpy x[idx], exactly;
 * dwconv_resident (T2) equals the JAX tool's oracle _dwconv_fwd_impl,
-  to 1e-5 at fp32 and one bf16 ulp at bf16;
+  to 1e-5 at fp32 and one bf16 ulp at bf16, and its cluster plan fits a
+  block's shared memory, covers every row and channel once and raises
+  where nothing fits; dtab's cluster plan likewise;
 * each T3 construct's plain version equals the construct body's jnp
   expression (the JAX tool keeps the bodies inside closures), exactly
   for the copies, pad, reshape, lookup and selects, to a relative 1e-5
@@ -224,12 +226,21 @@ def test_gather_bench_runs_on_cpu(tmp_path, monkeypatch, capsys):
     res = {k: v for ln in lines[2:] for k, v in ln.items()}
     assert sorted(res) == sorted(
         ["flat_gather", "dw_current", "dw_current_fp32", "sorted_gather",
-         "rowsize_x4", "rowsize_x16", "pl_take", "pl_dw", "pl_dw_nvec1",
-         "pl_dw_fp32", "onehot_window"])
+         "rowsize_x4", "rowsize_x16", "pl_take", "pl_dw",
+         "pl_dw_alt_cluster", "pl_dw_fp32", "onehot_window"])
     for name, ent in res.items():
         assert "cpu_ms" in ent and "ms" not in ent, name
+    # the plans the lines report: both cluster sizes at bf16, the
+    # default at fp32; no occupancy without a card
+    assert {res[n]["cluster"] for n in ("pl_dw", "pl_dw_alt_cluster")} \
+        == set(kgather.RESIDENT_CLUSTERS)
+    for name in ("pl_dw", "pl_dw_alt_cluster", "pl_dw_fp32"):
+        esz = 4 if name.endswith("fp32") else 2
+        assert res[name] | kgather.resident_plan(
+            4224, 256, esz, cluster=res[name]["cluster"]) == res[name]
+        assert res[name]["active_clusters"] is None
     for name in ("dw_current", "dw_current_fp32", "pl_take", "pl_dw",
-                 "pl_dw_nvec1", "pl_dw_fp32"):
+                 "pl_dw_alt_cluster", "pl_dw_fp32"):
         assert res[name]["maxdiff"] == 0.0, name    # CPU: plain == oracle
         assert res[name]["bound_ms"] > 0 if name[:2] == "pl" else True
     for name in ("pl_take", "pl_dw", "pl_dw_fp32"):
@@ -300,15 +311,87 @@ def test_tools_refuse_a_missing_card(monkeypatch):
 
 
 def test_resident_slice_fits_shared_memory():
-    # the probe's shape: 16 bf16 / 8 fp32 channels of 4224 rows = 135 KB
-    assert kgather.resident_slice(4224, 256, 2) == 2
-    assert kgather.resident_slice(4224, 256, 4) == 2
-    assert kgather.resident_slice(10000, 256, 2) == 1
-    assert kgather.resident_slice(4224, 256, 2, nvec=1) == 1
-    with pytest.raises(ValueError, match="no channel slice"):
-        kgather.resident_slice(10000, 256, 2, nvec=2)
-    with pytest.raises(ValueError, match="no channel slice"):
-        kgather.resident_slice(20000, 256, 2)
+    # the probe's shape: a cluster of 16 holds a sample's 256 bf16
+    # channels, 264 rows a block (135 KB of x beside 14 KB of weights and
+    # 30 KB of tap lists); 8 hold half of them; at fp32 16 hold half and 8
+    # a quarter
+    plan = kgather.resident_plan(4224, 256, 2)
+    assert plan == {"cluster": 16, "slice": 256, "rows": 264,
+                    "smem": 264 * 512 + 27 * 512 + 264 * 28 * 4 + 8,
+                    "clusters_per_sample": 1}
+    assert kgather.resident_plan(4224, 256, 2, cluster=8)["slice"] == 128
+    assert kgather.resident_plan(4224, 256, 4)["slice"] == 128
+    assert kgather.resident_plan(4224, 256, 4, cluster=8)["slice"] == 64
+    # a smaller card's shared memory takes a narrower slice
+    assert kgather.resident_plan(4224, 256, 2, smem=120_000)["slice"] == 128
+    with pytest.raises(ValueError, match="no cluster plan"):
+        kgather.resident_plan(400_000, 256, 2)
+    with pytest.raises(ValueError, match="cluster of 17"):
+        kgather.resident_plan(4224, 256, 2, cluster=17)
+
+
+# every (N, C) the tools, chip_smoke.py and these tests give the kernel
+RESIDENT_SHAPES = [(4224, 256), (4224, 32), (1000, 48), (10_000, 256)]
+
+
+@pytest.mark.parametrize("cluster", [None, *kgather.RESIDENT_CLUSTERS])
+@pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES,
+                         ids=[f"N{n}_C{c}" for n, c in RESIDENT_SHAPES])
+def test_resident_plan_covers_rows_and_channels(shape, esz, cluster):
+    N, C = shape
+    plan = kgather.resident_plan(N, C, esz, cluster=cluster)
+    cs, S, rows = plan["cluster"], plan["slice"], plan["rows"]
+    assert cs == (cluster or kgather.RESIDENT_CLUSTERS[0]) <= 16
+    # a block's rows, weights, tap lists and mbarrier fit the H100's 227 KB
+    assert plan["smem"] == (rows * S * esz + 27 * S * esz + rows * 28 * 4
+                            + 8) <= 232448
+    # the blocks' row ranges cover each row exactly once, each block's
+    # starting 16-byte aligned in the tap-list words
+    assert rows % 4 == 0
+    seen = np.zeros(N, int)
+    for r in range(cs):
+        seen[r * rows:min(N, (r + 1) * rows)] += 1
+    assert (seen == 1).all()
+    # the clusters' channel slices tile C in whole 16-byte vectors
+    assert S * esz % 16 == 0 and C % S == 0
+    assert plan["clusters_per_sample"] * S == C
+    # the widest slice that fits: twice as wide would not
+    wider = [d for d in range(S + 1, C + 1)
+             if C % d == 0 and d * esz % 16 == 0]
+    assert all(rows * d * esz + 27 * d * esz + rows * 28 * 4 + 8 > 232448
+               for d in wider)
+
+
+@pytest.mark.parametrize("esz", [2, 4], ids=["bf16", "fp32"])
+def test_resident_plan_raises_when_nothing_fits(esz):
+    # 16 blocks of 227 KB hold about 3.6 MB: 300k rows of one 16-byte
+    # vector do not fit, nor does a C without whole vectors
+    with pytest.raises(ValueError, match="no cluster plan"):
+        kgather.resident_plan(300_000, 16 // esz, esz)
+    with pytest.raises(ValueError, match="no cluster plan"):
+        kgather.resident_plan(64, 2, esz)
+
+
+def test_dtab_plan_bins_fit_one_cluster():
+    # the probe's dtab: 8 x 48 x 48 rows of 16 heads into 231 rows, one
+    # cluster of 16 blocks of 1152 rows (73.7 KB of g, 9 KB of indices and
+    # their order), 14.8 KB of bins (16 slices of 232) and 1.8 KB of counts
+    n, H, R = tprobe.WT * tprobe.K * tprobe.K, tprobe.H, tprobe.R
+    plan = kcon.dtab_plan(n, H, R)
+    assert plan == {"cluster": 16, "threads": 1024, "rows_per_block": 1152,
+                    "smem": 4 * (16 * 232 + 464 + 1152 * (2 + H))}
+    # shares start 16-byte aligned and cover every row
+    for m in (1, 5, 18433):
+        per = kcon.dtab_plan(m, H, R)["rows_per_block"]
+        assert per % 4 == 0 and 16 * per >= m > 16 * (per - 4)
+    # what does not fit the card's shared memory is refused, not cut
+    with pytest.raises(ValueError, match="do not fit"):
+        kcon.dtab_plan(n, H, 232448 // (6 * H))
+    with pytest.raises(ValueError, match="do not fit"):
+        kcon.dtab_plan(16 * 4096, H, R)
+    with pytest.raises(ValueError, match="do not fit"):
+        kcon.dtab_plan(n, H, R, smem=48 * 1024)
 
 
 def test_time_fn_on_cpu_uses_the_host_clock():
@@ -388,3 +471,17 @@ def test_bound_ms_takes_the_larger_time():
     ms, by = profiling.bound_ms(0, 2 * 67e9, "fp32")
     assert ms == pytest.approx(2.0) and by == "operations"
     assert profiling.bound_ms(1, 989e9, "bf16")[1] == "operations"
+
+
+def test_probe_ab_summarises_runs_per_side():
+    from hotformerloc_torch.tools import probe_ab
+    runs = [("a", {"pl_dw": {"device_ms": 0.1, "bound_ms": 0.01,
+                             "maxdiff": 0.0}}),
+            ("b", {"pl_dw": {"device_ms": 0.03, "cluster": 16},
+                   "dk": {"device_ms": 0.002, "body": "tc"}}),
+            ("b", {"pl_dw": {"device_ms": 0.031, "cluster": 16}}),
+            ("a", {"pl_dw": {"device_ms": 0.11, "bound_ms": 0.01}})]
+    assert probe_ab.summarise(runs) == {
+        "a": {"pl_dw": {"device_ms": [0.1, 0.11], "bound_ms": [0.01, 0.01]}},
+        "b": {"pl_dw": {"device_ms": [0.03, 0.031], "cluster": [16, 16]},
+              "dk": {"device_ms": [0.002], "body": ["tc"]}}}
