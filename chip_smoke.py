@@ -71,6 +71,10 @@ script exits non-zero without the final line:
    then 3 warm-up and 10 timed steps give step ms, submaps/s, octree +
    plan ms per step and peak memory. This phase runs without activation
    checkpointing (grad_checkpoint False), as every earlier PR measured it.
+6a. lamb: one bf16 step of 16 clouds as 2 microbatches of 8 at Oxford
+   width with make_optimizer's 'lamb' on the named parameters (one trust
+   ratio per JAX leaf): finite loss, every parameter tensor moved and
+   finite.
 6b. entry: the port's own CLIs on the card. A synthetic PNV-format
    dataset under .chip_tmp/entry (160 places x 2 passes of surface-like
    4096-point clouds with sigma 0.01 noise, its training-queries pickle,
@@ -86,14 +90,28 @@ script exits non-zero without the final line:
    update count and sampler batch size. pnv_evaluate's main on the final
    checkpoint must give the in-training evaluation's AR@1 / AR@1% / MRR
    of epoch 2 exactly, and a brute-force float64 numpy recall of the
-   same embeddings the same stats per split. Then one embed of the 256
-   evaluation clouds in one chunk (val_batch_size) is timed, and one
-   fp32 step at microbatch 8 (batch 16) with and without grad_checkpoint
-   must give the same loss (|diff| <= 1e-6) and gradients within
-   GRAD_TOL. The line carries the card, step ms (median after the
-   first), loader wait per batch, epoch seconds, embed ms per 256 clouds
-   and the peak memory of the training run, of both microbatch-8 steps
-   and of the evaluation.
+   same embeddings the same stats per split. The run's trainer then
+   takes one step of 256 (2 x 128) under the run's remat_policy
+   'save_hot' (the default) and under None, in turns (a b a b), on one
+   batch of its loader: step ms, peak memory and K1 / K3 launches
+   (remat_launches) for each. Then one embed of the 256 evaluation
+   clouds in one chunk (val_batch_size) is timed, and one fp32 step at
+   microbatch 8 (batch 16) without checkpointing and with
+   grad_checkpoint under each remat_policy (None, 'save_attn',
+   'save_hot') must give the same loss (|diff| <= 1e-6) and gradients
+   within GRAD_TOL, with the K1 / K3 forward launches the shape table
+   gives: the no-checkpoint step's plus, per microbatch, one per
+   checkpointed site whose output the policy does not keep (None: K1
+   and K3; 'save_attn': K3; 'save_hot': none). The line carries the
+   card, step ms (median after the first), loader wait per batch, epoch
+   seconds, embed ms per 256 clouds and the peak memory of the training
+   run, of each microbatch-8 step and of the evaluation.
+6e. convergence: tools/convergence_run.py at --exact shapes (Oxford at
+   full width and depth, batch 32 as 2 microbatches of 16, grad_checkpoint
+   with 'save_hot') on its synthetic benchmark (16 places per location x
+   4 variants), cut to CONV_EPOCHS epochs, evaluated at the last: finite
+   losses, the last epoch's below the first's, every model kernel
+   launched; prints the trajectory and epoch seconds.
 6c. dp: data parallelism (parallel/dist.py) at Oxford width, bf16 on
    fp32 parameters, no activation checkpointing, through
    tools/multihost_smoke on a synthetic PNV dataset of 64 clouds.
@@ -164,7 +182,12 @@ script exits non-zero without the final line:
 8. device times: K3, K4, K5 and K6 (K5/K6 on both bodies) under
    torch.profiler at the main path's shapes, taken after every other
    phase (profiled windows before the train phase were followed by
-   probe-tool windows without device events).
+   probe-tool windows without device events). Then the train phase's
+   bf16 step once more under torch.profiler (scatter_phase): the device
+   ms of the gather/scatter/index kernel class, its kernels, and the op
+   calls of scatter_add, index_add and gather's backward; the down-convs
+   differentiate no gather (their backward reads the inverse tables), so
+   the step may hold one gather_backward (the loss's top-k) and no more.
 9. the kernels line {"kernels": [...]} (the six model kernels, forward
    rows per forward of batch 32 and backward rows per train step of
    batch 32, K1/K2 and K5/K6 with their tensor-core launches and the
@@ -873,6 +896,86 @@ STEP_LAUNCHES = {"window_attn": 272, "octree_dwconv": 272, "octree_conv": 24,
                  "octree_conv_bwd": 12}
 
 
+def pair_batch(torch, dev, pts, pmask, B):
+    """The first B clouds as a train batch of positive pairs (clouds 2i
+    and 2i + 1, noisy copies of one cloud)."""
+    groups = np.repeat(np.arange(B // 2), 2)
+    same = groups[:, None] == groups[None]
+    return {"points": pts[:B], "pmask": pmask[:B],
+            "positives_mask": torch.from_numpy(
+                same & ~np.eye(B, dtype=bool)).to(dev),
+            "negatives_mask": torch.from_numpy(~same).to(dev)}
+
+
+def scatter_phase(torch, dev, cfg, pts, pmask):
+    """The train phase's bf16 step (batch 32 as 4 microbatches of 8,
+    Adam, no checkpointing), after two warm-up steps, once under
+    torch.profiler: the device ms of the gather/scatter/index kernel
+    class (tools/profile_step.py ``classify``), its kernels, and the op
+    calls of scatter_add, index_add and gather's backward. Before the
+    down-convs' scatter-free backward each differentiated gather of a
+    down-conv was a gather_backward and a scatter_add (5 per microbatch
+    at Oxford); one differentiated gather is left, the loss's top-k
+    (once per step), so more than one gather_backward raises. Run after
+    every other profiled window: a window this long, taken before the
+    probe tools, left their later windows without device events. A
+    window without device events is taken again, up to three in all."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.tools.profile_step import classify
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+    from hotformerloc_torch.utils.profiling import device_us
+
+    m = HOTFormerLoc(cfg, device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(m.parameters(), "adam", lr_schedule(
+        5e-4, steps_per_epoch=100, epochs=150, warmup_epochs=5,
+        milestones=[100]), weight_decay=1e-4)
+    step = make_train_step(m, opt, make_loss(
+        "truncatedsmoothap", positives_per_query=4),
+        StepConfig(accum_steps=ACCUM))
+    batch = pair_batch(torch, dev, pts, pmask, BATCH)
+    for i in range(2):
+        step(batch, i)
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(batch, 2 + attempt)
+            torch.cuda.synchronize()
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(device_us(e) for e in dev_events) > 0:
+            break
+    else:
+        raise RuntimeError("torch.profiler recorded no device time")
+    ops = collections.Counter(
+        e.name for e in prof.events()
+        if e.name in ("aten::scatter_add_", "aten::scatter_add",
+                      "aten::index_add_", "aten::index_add",
+                      "aten::gather_backward"))
+    cls = [e for e in dev_events
+           if classify(e.key) == "gather/scatter/index"]
+    out = {"windows": attempt + 1,
+           "gather_scatter_class_device_ms": sum(device_us(e) for e in cls)
+           / 1e3,
+           "gather_scatter_class_kernels": {e.key[:90]: e.count for e in cls},
+           "op_calls": dict(ops)}
+    del m, opt, step
+    torch.cuda.empty_cache()
+    if ops["aten::gather_backward"] > 1:
+        raise AssertionError(f"the step differentiates "
+                             f"{ops['aten::gather_backward']} gathers: a "
+                             "down-conv left its scatter-free backward")
+    return out
+
+
 def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
                 timed=10):
     """The multistage train step (batch 32 as 4 microbatches of 8): fp32
@@ -1023,6 +1126,111 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
     return launches, out
 
 
+def lamb_check(torch, dev, cfg, pts, pmask):
+    """One bf16 multistage step (16 clouds as 2 microbatches of 8) with
+    LAMB (make_optimizer's 'lamb', named parameters: one trust ratio per
+    JAX leaf), constant lr 1e-3: finite loss and gradients, and every
+    parameter tensor moved and finite."""
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+
+    batch = pair_batch(torch, dev, pts, pmask, 2 * MICRO)
+    m = HOTFormerLoc(cfg, device=dev, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+    opt = make_optimizer(m.named_parameters(), "lamb",
+                         lr_schedule(1e-3, 1, 10, scheduler="constant"),
+                         1e-4)
+    step = make_train_step(m, opt, make_loss(
+        "truncatedsmoothap", positives_per_query=4),
+        StepConfig(accum_steps=2))
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = step(batch, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    still = [n for n, p in m.named_parameters()
+             if torch.equal(p.detach(), before[n])
+             or not bool(torch.isfinite(p).all())]
+    if not np.isfinite(float(st["loss"])) or still:
+        raise AssertionError(f"LAMB step: loss {float(st['loss'])}, "
+                             f"{len(still)} tensors unmoved or non-finite, "
+                             f"e.g. {still[:3]}")
+    out = {"loss": float(st["loss"]), "first_step_ms": ms,
+           "tensors": len(before), "trust_ratio_leaves": len(opt.leaves),
+           "max_abs_change": max(
+               float((p.detach() - before[n]).abs().max())
+               for n, p in m.named_parameters())}
+    del m, opt, step, before
+    torch.cuda.empty_cache()
+    return out
+
+
+# convergence phase: the flagship run's benchmark (16 places per
+# location, 256 training clouds, 8 steps per epoch) and microbatch, cut
+# to CONV_EPOCHS epochs. The loss starts to fall some 40 steps after the
+# 5 warm-up epochs; at 4 places per location (2 steps per epoch) it had
+# not fallen after 20 epochs.
+CONV_PLACES = 16
+CONV_MICRO = 16
+CONV_EPOCHS = 15
+
+
+def convergence_phase(torch, smi):
+    """tools/convergence_run.py at --exact shapes (Oxford at full width
+    and depth, octree depth 9, 4096 points, the production capacities,
+    batch 32 as microbatches of CONV_MICRO, grad_checkpoint with the
+    default 'save_hot' policy) on a synthetic benchmark of CONV_PLACES
+    places per location x 4 variants, CONV_EPOCHS epochs, evaluated at
+    the last: finite losses, the last epoch's below the first's, every
+    model kernel launched (counters zeroed just before, read just
+    after)."""
+    import shutil
+
+    from hotformerloc_torch.config.params import parse_model_config
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.tools import convergence_run
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "convergence")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mpath = os.path.join(work, "model.txt")
+    with open(mpath, "w") as f:
+        f.write(convergence_run.model_cfg(True))
+    mcfg = parse_model_config(mpath).config
+    if not (mcfg.grad_checkpoint and mcfg.remat_policy == "save_hot"):
+        raise AssertionError(f"convergence model config off: {mcfg}")
+    kernels.reset_launches()
+    t0 = time.time()
+    summary = convergence_run.run([
+        "--exact", "--places_per_loc", str(CONV_PLACES),
+        "--batch_split_size", str(CONV_MICRO),
+        "--epochs", str(CONV_EPOCHS), "--eval_freq", str(CONV_EPOCHS),
+        "--out", os.path.join(work, "data"),
+        "--weights_dir", os.path.join(work, "weights"),
+        "--json_out", os.path.join(work, "summary.json")])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    losses = [r["loss"] for r in summary["train_trajectory"]]
+    missing = [k for k in MODEL_KERNELS if launches[k] == 0]
+    if (len(losses) != CONV_EPOCHS or not np.isfinite(losses).all()
+            or not losses[-1] < losses[0] or missing
+            or [r["epoch"] for r in summary["eval_trajectory"]]
+            != [CONV_EPOCHS]):
+        raise AssertionError(f"convergence run off: losses {losses}, "
+                             f"evaluations {summary['eval_trajectory']}, "
+                             f"no launches of {missing}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"card": smi, "seconds_run": time.time() - t0,
+            "losses": losses, "epoch_time_s": summary["epoch_time_s"],
+            "eval_trajectory": summary["eval_trajectory"],
+            "launches": launches}
+
+
 ENTRY_LOCS = 160             # entry phase: training places, 2 passes each
 ENTRY_EVAL = 32              # clouds per evaluation run (4 splits x 2 runs)
 ENTRY_SPLITS = ("oxford", "university", "residential", "business")
@@ -1171,17 +1379,120 @@ def numpy_recall(db, qv, query_sets, m, n, k=25):
             float(np.mean(1.0 / np.asarray(ranks)) * 100) if ranks else 0.0)
 
 
+REMAT_POLICIES = ("off", None, "save_attn", "save_hot")   # "off": no
+# checkpointing
+
+
+def remat_sites(cfg):
+    """(K1, K3) launches per forward at the checkpointed blocks (every
+    window attention; every CPE but the relay-token init's), from the
+    shape table."""
+    cases = path_cases(cfg)
+    return (sum(c[-1] for c in cases["window_attn"]),
+            sum(c[-1] for c in cases["octree_dwconv"]
+                if c[0].startswith("cpe_")))
+
+
+def remat_launches(cfg, policy, micro):
+    """K1 and K3 forward launches of one multistage step of ``micro``
+    microbatches under ``policy``: stages 1 and 3 run each forward once;
+    the backward runs again, per microbatch, the kernels of the
+    checkpointed blocks whose outputs the policy does not keep."""
+    cases = path_cases(cfg)
+    k1, k3 = remat_sites(cfg)
+    base = {k: 2 * micro * sum(c[-1] for c in cases[k])
+            for k in ("window_attn", "octree_dwconv")}
+    if policy == "off":
+        return base
+    return {"window_attn": base["window_attn"]
+            + (0 if policy in ("save_attn", "save_hot") else micro * k1),
+            "octree_dwconv": base["octree_dwconv"]
+            + (0 if policy == "save_hot" else micro * k3)}
+
+
+def set_remat(model, policy):
+    """Point every module's model config at ``policy`` (the stages read
+    ``cfg.remat_policy`` at each forward)."""
+    from hotformerloc_torch.models.config import ModelConfig
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), ModelConfig):
+            m.cfg = dataclasses.replace(m.cfg, remat_policy=policy)
+
+
+def remat_check(torch, dev, mcfg, pts, pmask):
+    """One fp32 step of 16 clouds as 2 microbatches of 8 without
+    checkpointing and with grad_checkpoint under each remat policy (None,
+    'save_attn', 'save_hot'), same weights and batch: the same loss
+    (|diff| <= 1e-6) and gradients within GRAD_TOL of the step without
+    checkpointing, and the K1 / K3 forward launches ``remat_launches``
+    gives (counters zeroed just before each step, read just after)."""
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+
+    batch = pair_batch(torch, dev, pts, pmask, 2 * MICRO)
+    res, out = {}, {"sites_k1_k3": remat_sites(mcfg)}
+    for policy in REMAT_POLICIES:
+        m = HOTFormerLoc(dataclasses.replace(
+            mcfg, grad_checkpoint=policy != "off",
+            remat_policy=None if policy == "off" else policy), device=dev,
+            generator=torch.Generator().manual_seed(0), dtype=torch.float32)
+        opt = make_optimizer(m.named_parameters(), "adam",
+                             lr_schedule(5e-4, 100, 150), 1e-4)
+        step = make_train_step(m, opt, make_loss(
+            "truncatedsmoothap", positives_per_query=4),
+            StepConfig(accum_steps=2))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = step(batch, 0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: kernels.LAUNCHES[k] for k in ("window_attn",
+                                                 "octree_dwconv")}
+        want = remat_launches(mcfg, policy, 2)
+        if got != want:
+            raise AssertionError(f"remat {policy}: K1 / K3 launches {got} "
+                                 f"!= {want}")
+        res[policy] = (float(st["loss"]), {n: p.grad.detach().clone()
+                                           for n, p in m.named_parameters()})
+        out[str(policy)] = {"launches": got,
+                            "peak_mem_gb": torch.cuda.max_memory_allocated()
+                            / 1e9, "first_step_ms": ms}
+        del m, opt, step, st
+        torch.cuda.empty_cache()
+    loss0, g0 = res["off"]
+    for policy in REMAT_POLICIES[1:]:
+        loss, g = res[policy]
+        worst = max(float((g[n] - g0[n]).norm())
+                    / (GRAD_TOL[0] * float(g0[n].norm()) + GRAD_TOL[1])
+                    for n in g0)
+        dloss = abs(loss - loss0)
+        if worst > 1.0 or dloss > 1e-6:
+            raise AssertionError(f"remat {policy} changes the step: loss "
+                                 f"diff {dloss}, worst gradient {worst} of "
+                                 "the bar")
+        out[str(policy)].update(loss_diff=dloss,
+                                grad_worst_ratio_to_limit=worst)
+    out["loss"] = loss0
+    return out
+
+
 def entry_phase(torch, dev, smi, pts, pmask):
     """The port's train and evaluate CLIs on the card (the entry path):
     train configs/oxford.txt's settings at batch 256 as 2 microbatches of
     128 with configs/oxford_model.txt unchanged (full width and depth,
     grad_checkpoint on) for 2 epochs on a synthetic dataset, resume, run
     pnv_evaluate on the final checkpoint and hold its recalls against
-    the in-training evaluation and a numpy recomputation; then one fp32
-    step at microbatch 8 with and without grad_checkpoint. Returns the
-    launches of the train run and the phase's numbers."""
+    the in-training evaluation and a numpy recomputation. The run's
+    trainer then takes one step of 256 under 'save_hot' and under None in
+    turns (a b a b) on one batch of its loader. Last, ``remat_check``.
+    Returns the launches of the train run and the phase's numbers."""
     import configparser
-    import dataclasses
     import pickle
     import shutil
 
@@ -1189,14 +1500,9 @@ def entry_phase(torch, dev, smi, pts, pmask):
                                                   parse_train_config)
     from hotformerloc_torch.evaluation import pnv_evaluate
     from hotformerloc_torch.evaluation.evaluate import get_latent_vectors
-    from hotformerloc_torch.losses.losses import make_loss
-    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
     from hotformerloc_torch.ops import kernels
     from hotformerloc_torch.training import train as train_cli
-    from hotformerloc_torch.training.optim import (lr_schedule,
-                                                   make_optimizer)
-    from hotformerloc_torch.training.step import StepConfig, make_train_step
-    from hotformerloc_torch.training.trainer import Trainer
+    from hotformerloc_torch.training.trainer import Trainer, to_device
 
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(here, ".chip_tmp", "entry")
@@ -1295,7 +1601,38 @@ def entry_phase(torch, dev, smi, pts, pmask):
                      "sampler_batch_size": back.train_sampler.batch_size,
                      "tensors": len(tr.model.state_dict())}
     final = tr.ckpt_path("final")
-    del tr, back, sa, sb
+    del back, sa, sb
+
+    # -- one step of 256 as 2 x 128 under 'save_hot' (the run's policy)
+    # and under None, on one batch of the run's loader, in turns ---------
+    if cfg.remat_policy != "save_hot":
+        raise AssertionError(f"the shipped run's remat_policy is "
+                             f"{cfg.remat_policy!r}, not 'save_hot'")
+    batch = to_device(next(iter(tr.train_loader)), dev)
+    if len(batch["points"]) != 256:
+        raise AssertionError(f"first batch of {len(batch['points'])}")
+    b256 = {"save_hot": [], "None": []}
+    for i, policy in enumerate(("save_hot", None, "save_hot", None)):
+        set_remat(tr.model, policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        st = tr.train_step(batch, 1000 + i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: kernels.LAUNCHES[k] for k in ("window_attn",
+                                                 "octree_dwconv")}
+        want = remat_launches(cfg, policy, 2)
+        if got != want or not np.isfinite(float(st["loss"])):
+            raise AssertionError(f"2 x 128 step under {policy}: launches "
+                                 f"{got} != {want} or loss {st['loss']}")
+        b256[str(policy)].append({
+            "step_ms": ms, "launches": got,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    set_remat(tr.model, "save_hot")
+    out["step_b256_by_remat_policy"] = b256
+    del tr, batch, st
     torch.cuda.empty_cache()
 
     # -- pnv_evaluate on the final checkpoint ----------------------------
@@ -1382,51 +1719,9 @@ def entry_phase(torch, dev, smi, pts, pmask):
     del embed_fn
     torch.cuda.empty_cache()
 
-    # -- grad_checkpoint at microbatch 8, fp32 ------------------------------
-    mcfg = parse_model_config(model_cfg).config
-    B = 2 * MICRO
-    groups = np.repeat(np.arange(B // 2), 2)
-    sm = groups[:, None] == groups[None]
-    batch = {"points": pts[:B], "pmask": pmask[:B],
-             "positives_mask": torch.from_numpy(
-                 sm & ~np.eye(B, dtype=bool)).to(dev),
-             "negatives_mask": torch.from_numpy(~sm).to(dev)}
-    res = {}
-    for gc in (False, True):
-        m = HOTFormerLoc(dataclasses.replace(mcfg, grad_checkpoint=gc),
-                         device=dev,
-                         generator=torch.Generator().manual_seed(0),
-                         dtype=torch.float32)
-        opt = make_optimizer(m.parameters(), "adam",
-                             lr_schedule(5e-4, 100, 150), 1e-4)
-        step = make_train_step(m, opt, make_loss(
-            "truncatedsmoothap", positives_per_query=4),
-            StepConfig(accum_steps=2))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        st = step(batch, 0)
-        torch.cuda.synchronize()
-        res[gc] = (float(st["loss"]), {n: p.grad.detach().clone()
-                                       for n, p in m.named_parameters()},
-                   torch.cuda.max_memory_allocated() / 1e9,
-                   (time.perf_counter() - t0) * 1e3)
-        del m, opt, step, st
-        torch.cuda.empty_cache()
-    worst = 0.0
-    for n, g in res[False][1].items():
-        d = float((res[True][1][n] - g).norm())
-        lim = GRAD_TOL[0] * float(g.norm()) + GRAD_TOL[1]
-        worst = max(worst, d / lim)
-    dloss = abs(res[True][0] - res[False][0])
-    if worst > 1.0 or dloss > 1e-6:
-        raise AssertionError(f"grad_checkpoint changes the step: loss diff "
-                             f"{dloss}, worst gradient {worst} of the bar")
-    out["grad_checkpoint_mb8_fp32"] = {
-        "loss": res[True][0], "loss_diff": dloss,
-        "grad_worst_ratio_to_limit": worst,
-        "peak_mem_gb_on": res[True][2], "peak_mem_gb_off": res[False][2],
-        "first_step_ms_on": res[True][3], "first_step_ms_off": res[False][3]}
+    # -- grad_checkpoint at microbatch 8, fp32, under each remat policy ---
+    out["grad_checkpoint_mb8_fp32"] = remat_check(
+        torch, dev, parse_model_config(model_cfg).config, pts, pmask)
     shutil.rmtree(work, ignore_errors=True)
     return launches, out
 
@@ -2227,11 +2522,20 @@ def main():
         dataclasses.replace(cfg, grad_checkpoint=False), pts, pmask, cases)
     emit({"phase": "train", **train,
           "seconds": round(time.time() - t_phase, 1)})
+    t_phase = time.time()
+    emit({"phase": "lamb", **lamb_check(
+        torch, dev, dataclasses.replace(cfg, grad_checkpoint=False), pts,
+        pmask), "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 6b. the train and evaluate entry points -------------------------
     t_phase = time.time()
     entry_launches, entry = entry_phase(torch, dev, smi, pts, pmask)
     emit({"phase": "entry", **entry,
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 6e. a short convergence run through the tool ----------------------
+    t_phase = time.time()
+    emit({"phase": "convergence", **convergence_phase(torch, smi),
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 6c. data parallelism -------------------------------------------
@@ -2268,6 +2572,14 @@ def main():
                              ("octree_conv", results["octree_conv"]),
                              ("octree_dwconv_bwd", bwd["octree_dwconv_bwd"]),
                              ("octree_conv_bwd", bwd["octree_conv_bwd"]))},
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 8b. the train step's gathers and scatters under the profiler ----
+    t_phase = time.time()
+    emit({"phase": "scatter_profile", "config": "oxford_config",
+          **scatter_phase(torch, dev,
+                          dataclasses.replace(cfg, grad_checkpoint=False),
+                          pts, pmask),
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 9. kernels line + result ----------------------------------------

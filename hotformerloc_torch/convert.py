@@ -9,7 +9,8 @@ numpy arrays (no JAX needed) and renames it onto this package's modules:
 * octree conv kernels, depthwise kernels, RPE tables and pooling queries
   keep their JAX layout;
 * the ``backbone/hotf_stage/iter`` subtree, stacked on a leading axis by
-  ``nn.scan``, is unstacked into ``backbone.hotf_stage.iters.<i>``.
+  ``nn.scan``, is unstacked into ``backbone.hotf_stage.iters.<i>``
+  (``jax_leaf`` maps those names back onto their one stacked leaf).
 
 Every JAX leaf is used exactly once and every parameter of the target
 model is set; the converter raises otherwise. Any tree shaped like the
@@ -31,6 +32,8 @@ _RENAME = {
     "LayerScale_1": "ls2",
 }
 _STACKED = ("backbone", "hotf_stage", "iter")
+# the port's prefix of the parameters unstacked from that subtree
+_UNSTACKED = "backbone.hotf_stage.iters."
 
 
 def _leaves(tree, prefix=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -92,7 +95,7 @@ def params_from_jax(params: Dict, model: torch.nn.Module
                                  f"{n_iters} iterations")
             name, dense = _torch_name(path[3:])
             for i in range(n_iters):
-                put(f"backbone.hotf_stage.iters.{i}.{name}", arr[i], dense,
+                put(f"{_UNSTACKED}{i}.{name}", arr[i], dense,
                     src)
         else:
             name, dense = _torch_name(path)
@@ -102,3 +105,14 @@ def params_from_jax(params: Dict, model: torch.nn.Module
         raise KeyError(f"parameters not set by the JAX tree: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
     return out
+
+
+def jax_leaf(name: str) -> str:
+    """The JAX leaf a port parameter comes from, named by the port's
+    parameter name with the iteration index of an unstacked HOTFormer
+    iteration replaced by ``*``: the parameters of one stacked leaf share
+    the name. (Per-leaf optimiser terms such as LAMB's trust ratio are
+    taken over the whole leaf.)"""
+    if name.startswith(_UNSTACKED):
+        return _UNSTACKED + "*." + name[len(_UNSTACKED):].split(".", 1)[1]
+    return name

@@ -13,17 +13,23 @@ and its H-OSA blocks.
 With ``cfg.grad_checkpoint`` each OctFormer block and each HOTFormer
 iteration runs under ``torch.utils.checkpoint`` whenever autograd
 records (the JAX package's ``nn.remat`` sites): the backward recomputes
-the block from its inputs instead of keeping its activations. Nothing is
-kept, so the JAX default ``remat_policy = "save_hot"`` (keep the
-attention and CPE outputs) is not followed: the same numbers, more time.
+the block from its inputs instead of keeping its activations, but for
+what ``cfg.remat_policy`` keeps, as the JAX package's ``_remat`` does
+(backbone.py:33-47): None keeps nothing; 'save_attn' keeps the output of
+every window attention (K1, the op ``hotformerloc::window_attn``; JAX's
+"attn_out" tag); 'save_hot' (the default) keeps those and the output of
+every CPE conv (K3, ``hotformerloc::octree_dwconv``, before its
+LayerNorm; JAX's "cpe_out"), so the backward runs neither kernel again.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
                                               RelayTokenBlock)
@@ -35,9 +41,26 @@ from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import OctreePlan
 
 
+# The kernel ops whose outputs each remat policy keeps.
+REMAT_SAVED_OPS = {None: (), "save_attn": ("window_attn",),
+                   "save_hot": ("window_attn", "octree_dwconv")}
+
+
+def _keep_ops(names):
+    """Selective-checkpoint policy: keep the outputs of the ops named,
+    recompute every other op."""
+    keep = {getattr(torch.ops.hotformerloc, n).default for n in names}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
+
 def run_block(cfg: ModelConfig, block: nn.Module, *args):
     """``block(*args)``, under activation checkpointing when
-    ``cfg.grad_checkpoint`` is set and autograd records. The DropPath
+    ``cfg.grad_checkpoint`` is set and autograd records, keeping the
+    outputs ``cfg.remat_policy`` names (``REMAT_SAVED_OPS``). The DropPath
     masks set on the block now are handed to the recompute (the model
     clears them once its forward returns, before the backward runs), and
     the block draws no randomness, so the recompute equals the forward."""
@@ -56,7 +79,11 @@ def run_block(cfg: ModelConfig, block: nn.Module, *args):
             for s, m in zip(sites, prev):
                 s.mask = m
 
-    return checkpoint(run, *args, use_reentrant=False)
+    saved = REMAT_SAVED_OPS[cfg.remat_policy]
+    if not saved:
+        return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(run, *args, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, _keep_ops(saved)))
 
 
 class PatchEmbed(nn.Module):
@@ -81,7 +108,7 @@ class PatchEmbed(nn.Module):
         for i in range(self.num_down):
             ctx = plan.level_ctx(d - i)
             x = getattr(self, f"conv{i}")(x, ctx.neigh, ctx.taps)
-            x = getattr(self, f"down{i}")(x, plan.children(d - i))
+            x = getattr(self, f"down{i}")(x, plan.down_tables(d - i))
         ctx = plan.level_ctx(d - self.num_down)
         return self.proj(x, ctx.neigh, ctx.taps)
 
@@ -208,7 +235,7 @@ class HOTFormerStage(nn.Module):
         locals_ = [x]
         for j in range(len(self.depths) - 1):
             locals_.append(getattr(self, f"downsample{j}")(
-                locals_[j], plan.children(self.depths[j])))
+                locals_[j], plan.down_tables(self.depths[j])))
         rts = []
         for j, d in enumerate(self.depths):
             src = locals_[j]
@@ -268,6 +295,7 @@ class HOTFormerBase(nn.Module):
         d = c.transformer_depth
         for i in range(c.num_octf_levels):
             feat = getattr(self, f"octf_stage{i}")(feat, plan.level_ctx(d))
-            feat = getattr(self, f"octf_down{i}")(feat, plan.children(d))
+            feat = getattr(self, f"octf_down{i}")(feat,
+                                                     plan.down_tables(d))
             d -= 1
         return self.hotf_stage(feat, plan)

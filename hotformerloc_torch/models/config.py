@@ -2,13 +2,14 @@
 
 Own copy of the JAX package's ``ModelConfig`` (hotformerloc_tpu/models/
 config.py) so that a config reads the same in both packages. The fields
-``use_band_conv``, ``band_tile``, ``band_halo``, ``use_pallas_attn`` and
-``remat_policy`` select TPU code paths there and have no effect here:
-this package picks kernels with ``HOTFormerLoc.set_use_kernels``
-instead, and recomputes every checkpointed block in full.
-``grad_checkpoint`` acts as it does there: each OctFormer block and each
-HOTFormer iteration recomputes its activations in the backward
-(models/backbone.py ``run_block``).
+``use_band_conv``, ``band_tile``, ``band_halo`` and ``use_pallas_attn``
+select TPU code paths there and have no effect here: this package picks
+kernels with ``HOTFormerLoc.set_use_kernels`` instead.
+``grad_checkpoint`` and ``remat_policy`` act as they do there: each
+OctFormer block and each HOTFormer iteration recomputes its activations
+in the backward but for what the policy keeps (None: nothing;
+'save_attn': the window attention outputs; 'save_hot', the default:
+those and the CPE conv outputs; models/backbone.py ``run_block``).
 """
 from __future__ import annotations
 
@@ -87,6 +88,8 @@ class ModelConfig:
     remat_policy: Optional[str] = "save_hot"
 
     def __post_init__(self):
+        if self.remat_policy not in (None, "save_attn", "save_hot"):
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.rt_size < 1 or self.patch_size % self.rt_size != 0:
             raise ValueError(
                 f"patch_size ({self.patch_size}) must be divisible by "

@@ -193,7 +193,9 @@ class OctreeConvNormRelu(_KernelRouted):
 
 
 class Downsample(nn.Module):
-    """Kernel-2 stride-2 conv + LayerNorm (no ReLU), plain tensor code."""
+    """Kernel-2 stride-2 conv + LayerNorm (no ReLU), plain tensor code.
+    ``down`` is ``OctreePlan.down_tables``' (children, parent, octant),
+    whose inverse tables give the scatter-free backward."""
     relu = False
 
     def __init__(self, cin: int, cout: int, device=None):
@@ -202,10 +204,12 @@ class Downsample(nn.Module):
         self.bias = param((cout,), "const", 0.0, device=device)
         self.norm = layer_norm(cout, device=device)
 
-    def forward(self, x, children):
+    def forward(self, x, down):
+        children, parent, octant = down
         y = self.norm(plain.octree_down_conv(x, children,
                                              cast(self.kernel, x),
-                                             cast(self.bias, x)))
+                                             cast(self.bias, x), parent,
+                                             octant))
         return F.relu(y) if self.relu else y
 
 

@@ -3,8 +3,10 @@
 Counterparts of hotformerloc_tpu/ops/conv.py. ``octree_conv`` and
 ``octree_dwconv`` with their explicit gradients ``octree_conv_bwd`` and
 ``octree_dwconv_bwd`` are the plain versions of the CUDA kernels in
-ops/kernels/octree_conv.py; the down-conv stays plain tensor code
-differentiated by autograd, as XLA computed it in the JAX package.
+ops/kernels/octree_conv.py. The down-conv is plain tensor code, as XLA
+computes it in the JAX package; given the inverse tables (``parent``,
+``octant``) it has the JAX package's scatter-free backward
+(``DownConvFn``: dx is a gather of dy's products, never a scatter).
 ``octree_dwconv_dense`` is the counterpart of the JAX package's
 dense-grid CPE conv; the model does not call it (every CPE runs
 ``octree_dwconv``, the same function), and chip_smoke.py times its cuDNN
@@ -84,11 +86,66 @@ def octree_conv_bwd(x: torch.Tensor, neigh: torch.Tensor, w: torch.Tensor,
     return dx, dw, dy.float().sum((0, 1))
 
 
+class DownConvFn(torch.autograd.Function):
+    """The stride-2 conv with hotformerloc_tpu/ops/conv.py's custom VJP
+    (``_down_core_bwd``): the forward is ``octree_conv`` over the children
+    table; the backward reads the inverse tables instead of scattering.
+
+        dx[b, c] = w[octant[b, c]]^T dy[b, parent[b, c]]   (0 where parent
+                   is -1), as a gather of P = dy . w^T (B, N_parent * 8,
+                   C) at parent * 8 + octant, fp32 products, x's dtype;
+        dw[k] = sum_{b,p} x[b, children[b, p, k]] (x) dy[b, p] in fp32,
+                   returned in w's dtype;
+        db = sum_{b,p} dy[b, p] in fp32, returned in b's dtype.
+
+    children[b, p, o] = c exactly when parent[b, c] = p and octant[b, c]
+    = o, so the gather gives what autograd's scatter of the forward's
+    gather would, without the scatter."""
+
+    @staticmethod
+    def forward(ctx, x, children, parent, octant, w, b):
+        ctx.save_for_backward(x, children, parent, octant, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        return octree_conv(x, children, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, children, parent, octant, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        B, Np, O = dy.shape
+        K, C, _ = w.shape
+        dyf = dy.reshape(B * Np, O).float()
+        dx = dw = db = None
+        if need[0]:
+            prod = dyf @ w.float().permute(2, 0, 1).reshape(O, K * C)
+            rows = torch.where(parent >= 0, parent * K + octant,
+                               torch.full_like(parent, -1))
+            dx = _gather_rows(prod.reshape(B, Np * K, C),
+                              rows).to(x.dtype)
+        if need[4]:
+            dw = torch.empty((K, C, O), dtype=torch.float32,
+                             device=x.device)
+            for k in range(K):      # one octant at a time: no (.., 8, C)
+                gk = _gather_rows(x, children[..., k]).reshape(B * Np, C)
+                torch.mm(gk.float().t(), dyf, out=dw[k])
+            dw = dw.to(w.dtype)
+        if need[5]:
+            db = dyf.sum(0).to(ctx.b_dtype)
+        return dx, None, None, None, dw, db
+
+
 def octree_down_conv(x: torch.Tensor, children: torch.Tensor,
-                     w: torch.Tensor,
-                     b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel-2 stride-2 conv: children (B, N_parent, 8), w (8, C, O)."""
-    return octree_conv(x, children, w, b)
+                     w: torch.Tensor, b: Optional[torch.Tensor] = None,
+                     parent: Optional[torch.Tensor] = None,
+                     octant: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel-2 stride-2 conv: children (B, N_parent, 8), w (8, C, O).
+    ``parent``/``octant`` ((B, N_child) each, ``OctreePlan.down_tables``)
+    give the scatter-free backward (``DownConvFn``); without them autograd
+    differentiates the gather (a scatter), which is fine without
+    gradients."""
+    if parent is None or octant is None:
+        return octree_conv(x, children, w, b)
+    return DownConvFn.apply(x, children, parent, octant, w, b)
 
 
 # -- dense-grid depthwise conv (the JAX package's coarse-depth CPE) --------

@@ -33,3 +33,11 @@ LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_device(t, what: str) -> None:
+    """Raise for a tensor on neither the CPU (the plain versions) nor a
+    CUDA card (the kernels). The kernel ops register no meta (fake)
+    implementation, so they are called only after this check."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")

@@ -4,7 +4,11 @@ convolutions, forward and backward.
 ``octree_dwconv`` and ``octree_conv`` apply ``OctreeDwconvFn`` and
 ``OctreeConvFn``: on CUDA tensors their forwards launch K3/K5 and their
 backwards K4/K6 (csrc/octree_conv.cu); on CPU tensors they run the plain
-versions in ops/conv.py. They replace
+versions in ops/conv.py. K3 and K4 go through the dispatcher as the
+ops ``hotformerloc::octree_dwconv`` and ``hotformerloc::octree_dwconv_bwd``,
+so that a selective activation checkpoint policy (models/backbone.py
+``run_block``) can keep K3's output instead of running K3 again in the
+backward. They replace
 hotformerloc_tpu/ops/pallas/band_conv.py:_dw_fwd_kernel/_dw_bwd_kernel
 (entry ``banded_dwconv``) and :_conv_fwd_kernel/_conv_bwd_kernel (entry
 ``banded_conv``); the direct gather needs no band tables and is exact for
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -288,24 +292,53 @@ def octree_conv_bwd(x, neigh, w, dy, need_dx: bool = True,
     return dx, dw, dy.sum((0, 1), dtype=torch.float32)
 
 
+@torch.library.custom_op("hotformerloc::octree_dwconv", mutates_args=())
+def octree_dwconv_op(x: torch.Tensor, neigh: torch.Tensor,
+                     w: torch.Tensor) -> torch.Tensor:
+    """K3 as a dispatcher op (w in x's dtype): the kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    return _dw_fwd(x, neigh, w)
+
+
+@torch.library.custom_op("hotformerloc::octree_dwconv_bwd", mutates_args=())
+def octree_dwconv_bwd_op(x: torch.Tensor, neigh: torch.Tensor,
+                         w: torch.Tensor, dy: torch.Tensor, need_dx: bool,
+                         tap_dst: Optional[torch.Tensor],
+                         tap_src: Optional[torch.Tensor],
+                         tap_count: Optional[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 as a dispatcher op (``octree_dwconv_bwd``; the tap lists as
+    three tensors, all None to build them here). dx is an empty tensor
+    when ``need_dx`` is False."""
+    taps = (None if tap_dst is None
+            else TapLists(dst=tap_dst, src=tap_src, count=tap_count))
+    dx, dw = octree_dwconv_bwd(x, neigh, w, dy, need_dx, taps)
+    return (x.new_empty(0) if dx is None else dx), dw
+
+
 class OctreeDwconvFn(torch.autograd.Function):
-    """K3 forward, K4 backward (plain versions on CPU tensors)."""
+    """K3 forward, K4 backward (plain versions on CPU tensors), through
+    the ops ``hotformerloc::octree_dwconv`` and ``::octree_dwconv_bwd``."""
 
     @staticmethod
     def forward(ctx, x, neigh, w, taps):
+        kernels.check_device(x, "octree_dwconv")
         wc = w.to(x.dtype).contiguous()
         ctx.save_for_backward(x, neigh, wc)
         ctx.w_dtype = w.dtype
         ctx.taps = taps
-        return _dw_fwd(x, neigh, wc)
+        return octree_dwconv_op(x, neigh, wc)
 
     @staticmethod
     def backward(ctx, dy):
         x, neigh, wc = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dx, dw = octree_dwconv_bwd(x, neigh, wc, dy.contiguous(), need[0],
-                                   ctx.taps)
-        return dx, None, dw.to(ctx.w_dtype) if need[2] else None, None
+        tl = ctx.taps
+        dx, dw = octree_dwconv_bwd_op(
+            x, neigh, wc, dy.contiguous(), bool(need[0]),
+            *((None,) * 3 if tl is None else (tl.dst, tl.src, tl.count)))
+        return (dx if need[0] else None, None,
+                dw.to(ctx.w_dtype) if need[2] else None, None)
 
 
 class OctreeConvFn(torch.autograd.Function):

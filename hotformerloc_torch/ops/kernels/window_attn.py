@@ -4,7 +4,11 @@ backward.
 ``window_attention`` applies ``WindowAttentionFn``: on CUDA tensors its
 forward launches K1 and its backward K2 (csrc/window_attn.cu); on CPU
 tensors they run the plain versions ``window_attention_reference`` and
-``window_attention_bwd_reference``. They replace
+``window_attention_bwd_reference``. Both directions go through the
+dispatcher as the ops ``hotformerloc::window_attn`` and
+``hotformerloc::window_attn_bwd``, so that a selective activation
+checkpoint policy (models/backbone.py ``run_block``) can keep K1's
+output instead of running K1 again in the backward. They replace
 hotformerloc_tpu/ops/pallas/window_attn.py:_fwd_kernel and _bwd_kernel
 (entry ``fused_window_attention`` and its custom VJP); layouts are the
 JAX entry's.
@@ -21,6 +25,7 @@ strides.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -318,24 +323,47 @@ def window_attention_bwd(q, k, v, xyz, mask, table, g, num_heads: int,
     return dq, dk, dv, dtable
 
 
+@torch.library.custom_op("hotformerloc::window_attn", mutates_args=())
+def window_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   xyz: torch.Tensor, mask: torch.Tensor,
+                   table: torch.Tensor, num_heads: int, pos_bnd: int,
+                   use_rpe: bool) -> torch.Tensor:
+    """K1 as a dispatcher op: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    return _fwd(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe)
+
+
+@torch.library.custom_op("hotformerloc::window_attn_bwd", mutates_args=())
+def window_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       xyz: torch.Tensor, mask: torch.Tensor,
+                       table: torch.Tensor, g: torch.Tensor, num_heads: int,
+                       pos_bnd: int, use_rpe: bool, need_dtable: bool
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """K2 as a dispatcher op (``window_attention_bwd``)."""
+    return window_attention_bwd(q, k, v, xyz, mask, table, g, num_heads,
+                                pos_bnd, use_rpe, need_dtable)
+
+
 class WindowAttentionFn(torch.autograd.Function):
-    """K1 forward, K2 backward (plain versions on CPU tensors)."""
+    """K1 forward, K2 backward (plain versions on CPU tensors), through
+    the ops ``hotformerloc::window_attn`` and ``::window_attn_bwd``."""
 
     @staticmethod
     def forward(ctx, q, k, v, xyz, mask, table, num_heads, pos_bnd,
                 use_rpe):
+        kernels.check_device(q, "window_attention")
         ctx.save_for_backward(q, k, v, xyz, mask, table)
-        ctx.cfg = (num_heads, pos_bnd, use_rpe)
-        return _fwd(q, k, v, xyz, mask, table, num_heads, pos_bnd, use_rpe)
+        ctx.cfg = (int(num_heads), int(pos_bnd), bool(use_rpe))
+        return window_attn_op(q, k, v, xyz, mask, table, *ctx.cfg)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, xyz, mask, table = ctx.saved_tensors
-        num_heads, pos_bnd, use_rpe = ctx.cfg
         need = ctx.needs_input_grad
-        dq, dk, dv, dtable = window_attention_bwd(
-            q, k, v, xyz, mask, table, g.contiguous(), num_heads, pos_bnd,
-            use_rpe, need_dtable=need[5])
+        dq, dk, dv, dtable = window_attn_bwd_op(
+            q, k, v, xyz, mask, table, g.contiguous(), *ctx.cfg,
+            bool(need[5]))
         return (dq if need[0] else None, dk if need[1] else None,
                 dv if need[2] else None, None, None,
                 dtable.to(table.dtype) if need[5] else None,

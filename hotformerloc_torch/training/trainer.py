@@ -228,7 +228,7 @@ class Trainer:
                             params.scheduler, params.scheduler_milestones,
                             params.gamma, params.min_lr,
                             params.warmup_epochs)
-        self.optimizer = make_optimizer(self.model.parameters(),
+        self.optimizer = make_optimizer(self.model.named_parameters(),
                                         params.optimizer, sched,
                                         params.weight_decay)
         self.loss_fn = make_loss(params.loss, **loss_kwargs(params))

@@ -240,6 +240,8 @@ def test_port_imports_no_jax_in_fresh_interpreter(synth_dataset):
         hotformerloc_torch.__path__, "hotformerloc_torch."))
     assert "hotformerloc_torch.training.trainer" in mods
     assert "hotformerloc_torch.data.pipeline" in mods
+    assert {"hotformerloc_torch.tools.convergence_run",
+            "hotformerloc_torch.tools.synthetic_benchmark"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -3,17 +3,22 @@ the CPU (where the kernel Functions run their plain forward and backward):
 
 * the four losses: value and gradient against JAX (rtol 1e-5, with an
   absolute floor of 1e-5 max |g| for entries near zero);
-* lr_schedule and five Adam (L2 weight decay) / AdamW steps against
-  optax (rtol 1e-6; atol 1e-6 on the parameters, see the test);
+* lr_schedule and five Adam (L2 weight decay) / AdamW / LAMB steps
+  against optax (rtol 1e-6; atol 1e-6 on the parameters, see the test),
+  and three LAMB steps on the tiny model's parameters against optax.lamb,
+  whose trust ratio spans the stacked HOTFormer iterations;
 * tiny_test_config model gradients of truncated_smoothap against
   jax.grad, mapped by name through params_from_jax, with kernel routing
-  on and off: loss rtol 1e-5, each tensor |dg| <= 1e-3 |g_jax| + 1e-8;
+  on and off and under each remat policy: loss rtol 1e-5, each tensor
+  |dg| <= 1e-3 |g_jax| + 1e-8;
 * the multistage step (accum 4) against the single pass, to the bar of
   tests/test_train_step.py;
 * DropPath: per-sample masks scaled by 1/keep, rates in block order,
   equal stage-1 / stage-3 embeddings, and a loss that falls over 8
   steps; EMA + MESA and the eval step run.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,7 +131,7 @@ def test_lr_schedule_matches_jax(kw):
                                    atol=1e-30, err_msg=str(step))
 
 
-@pytest.mark.parametrize("name", ["adam", "adamw"])
+@pytest.mark.parametrize("name", ["adam", "adamw", "lamb"])
 def test_optimizer_steps_match_optax(name):
     rng = np.random.default_rng(3)
     p0 = {"a": rng.standard_normal((5, 4)).astype(np.float32),
@@ -157,10 +162,6 @@ def test_optimizer_steps_match_optax(name):
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_lamb_is_not_ported():
-    with pytest.raises(NotImplementedError, match="lamb"):
-        topt.make_optimizer([torch.nn.Parameter(torch.zeros(2))], "lamb",
-                            topt.lr_schedule(1e-3, 1, 10))
 
 
 # -- model gradients against jax.grad ---------------------------------------
@@ -194,12 +195,26 @@ def grad_pair():
     # gradient tree, by name onto the port's parameters
     tgrad_ref = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrad),
                                 tm)
-    return tm, b, float(jloss), tgrad_ref
+    return tm, b, float(jloss), tgrad_ref, np_tree
 
 
-@pytest.mark.parametrize("use_kernels", [True, False])
-def test_model_grads_match_jax(grad_pair, use_kernels):
-    tm, b, jloss, gref = grad_pair
+# remat "off": no checkpointing; else grad_checkpoint with that policy.
+# The ids of the first two cases are those of the test before the
+# policies were added.
+@pytest.mark.parametrize("use_kernels,remat", [
+    (True, "off"), (False, "off"), (True, None), (True, "save_attn"),
+    (True, "save_hot")], ids=["True", "False", "True-remat_None",
+                              "True-save_attn", "True-save_hot"])
+def test_model_grads_match_jax(grad_pair, use_kernels, remat):
+    """With each remat policy too: the checkpointed model's gradients
+    against jax.grad at the same bar (tests/test_torch_remat.py holds
+    them bitwise against no checkpointing)."""
+    tm, b, jloss, gref, _ = grad_pair
+    if remat != "off":
+        m = TModel(dataclasses.replace(tm.cfg, grad_checkpoint=True,
+                                       remat_policy=remat), device="cpu")
+        m.load_state_dict(tm.state_dict())
+        tm = m
     tm.set_use_kernels(use_kernels)
     tm.train()
     tm.zero_grad(set_to_none=True)
@@ -219,6 +234,60 @@ def test_model_grads_match_jax(grad_pair, use_kernels):
             bad.append((name, d, lim))
     assert not bad, bad[:5]
     tm.eval()
+
+
+def test_lamb_steps_match_optax_on_tiny_model(grad_pair):
+    """Three LAMB steps on the tiny model's converted JAX parameters with
+    the same random gradients (one scale per HOTFormer iteration) against
+    optax.lamb: each tensor within 1e-6 + 1e-5 |p|. optax takes the trust
+    ratio over a whole leaf, and the HOTFormer iterations' parameters are
+    stacked in one leaf per name, so taking it per tensor must miss."""
+    tm, _, _, _, np_tree = grad_pair
+    kw = dict(base_lr=0.05, steps_per_epoch=1, epochs=10,
+              scheduler="constant")
+    rng = np.random.default_rng(17)
+
+    def rand_grads(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: rand_grads(v, path + (k,)) for k, v in tree.items()}
+        g = rng.standard_normal(tree.shape).astype(np.float32)
+        if path[:3] == ("backbone", "hotf_stage", "iter"):
+            g *= np.arange(1, tree.shape[0] + 1, dtype=np.float32).reshape(
+                (-1,) + (1,) * (tree.ndim - 1))
+        return g
+
+    grads = [rand_grads(np_tree) for _ in range(3)]
+    tx = jopt.make_optimizer("lamb", jopt.lr_schedule(**kw),
+                             weight_decay=1e-4)
+    jp = jax.tree_util.tree_map(jnp.asarray, np_tree)
+    st = tx.init(jp)
+    for g in grads:
+        up, st = tx.update(jax.tree_util.tree_map(jnp.asarray, g), st, jp)
+        jp = optax.apply_updates(jp, up)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tm)
+    tgrads = [params_from_jax(g, tm) for g in grads]
+
+    def run(named):
+        m = TModel(tm.cfg, device="cpu")
+        m.load_state_dict(tm.state_dict())
+        opt = topt.make_optimizer(m.named_parameters() if named
+                                  else m.parameters(), "lamb",
+                                  topt.lr_schedule(**kw), weight_decay=1e-4)
+        for i, g in enumerate(tgrads):
+            for group in opt.param_groups:
+                group["lr"] = opt.schedule(i)
+            for n, p in m.named_parameters():
+                p.grad = g[n].clone()
+            opt.step()
+        return {n: p.detach() for n, p in m.named_parameters()}
+
+    def misses(got):
+        return [n for n in want if not torch.allclose(
+            got[n], want[n], rtol=1e-5, atol=1e-6)]
+
+    assert not misses(run(True))
+    per_tensor = misses(run(False))
+    assert per_tensor and all(".iters." in n for n in per_tensor)
 
 
 # -- the train step -----------------------------------------------------------
