@@ -157,6 +157,25 @@ script exits non-zero without the final line:
    launches, and pnv_evaluate on the final checkpoint reports the four
    locations with the in-training average. The line gives each part's
    numbers and seconds with the card.
+6f. ablations: the model's off-path branches, three variants of
+   oxford_config at full width and depth (ablation_variants): A
+   batchnorm, xCPE, rt_size 2, relay-token propagation, AttnPoolMixer; B
+   relay tokens in the OctFormer stage, powernorm, PyramidOctGeMgc, the
+   'NDLP' features (on the surface-like clouds with their exact plane
+   normals), dropout 0.1; C disable_rt, no stem downsampling,
+   PyramidOctGeM, capacities for depths 6-9. Per variant: the kernels at
+   its new shapes against their plain versions and timed (ABLATION_ROWS:
+   K1/K2 at T = 50 and 49, K5/K6 at the xCPE's 128 x 128 and 256 x 256,
+   K3/K4 and the stem's 128 -> 128 K5/K6 at depth 9), serve_check
+   (launches per bf16 forward as the variant's table), train_phase with
+   5 timed steps: fp32 gradients within GRAD_TOL at dropout 0 (a
+   parameter that only shifts a MaskedBatchNorm's input has gradient 0:
+   both paths within ZERO_GRAD_TOL of the gradient's norm; a head's
+   BatchNorm takes its variance in two passes there), stage 3 equal to
+   stage 1, the running statistics equal between the paths, equal to
+   stage 1's last microbatch applied once, and (A) under checkpointing;
+   B's bf16 step, with attention dropout, launches no K1/K2 (the einsum
+   route, as JAX's).
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, on both cluster sizes, with K3 on the same
@@ -204,8 +223,11 @@ script exits non-zero without the final line:
    cs_wild_places_config's shapes (cs_wild_places), and every model
    kernel's row its launches in the configs phase's runs (per bf16
    forward and train step of CS-Wild-Places and of Wild-Places, and in
-   the CS-Wild-Places CLI run). Then {"ok": true, "device":
-   ...}.
+   the CS-Wild-Places CLI run), and in the ablations phase's runs
+   (launches_ablations: per bf16 forward, or per step for the backward
+   kernels, of each variant; launches_ablations_train_step) with the
+   rows at the variants' new shapes (ablations). Then {"ok": true,
+   "device": ...}.
 Every phase prints its seconds.
 """
 import dataclasses
@@ -233,6 +255,10 @@ TOL = {"fp32": {"window_attn": 1e-5, "octree_dwconv": 1e-5,
 TOL_BWD = {"fp32": {"act": 1e-5, "weight": 1e-4}, "bf16": {"act": 1e-2,
                                                           "weight": 1e-4}}
 GRAD_TOL = (1e-4, 1e-7)      # train phase: |dg| <= a |g_plain| + b
+# train phase, parameters whose gradient is 0 in exact arithmetic (a
+# shift of a MaskedBatchNorm's input, ``bn_shift_params``): |g| on each
+# path <= this times the norm of the whole gradient
+ZERO_GRAD_TOL = 1e-6
 REPS = 20
 DEV_ITERS = 5                # profiled calls per device time
 BATCH = 32
@@ -290,11 +316,14 @@ def clouds(seed=0):
     return pts
 
 
-def surface_cloud(rng, points=4096):
+def surface_cloud(rng, points=4096, normals=False):
     """``points`` points on 3-4 random planes through the cube (uniform in
     a 1.8-wide square about a centre in +-0.5, clipped to +-0.95),
-    float32: its nodes have more valid taps than a uniform cloud's."""
+    float32: its nodes have more valid taps than a uniform cloud's. With
+    ``normals`` also each point's unit plane normal (exact; the same
+    points either way)."""
     out = np.empty((points, 3), np.float32)
+    nrm = np.empty((points, 3), np.float32)
     n_planes = int(rng.integers(3, 5))
     which = rng.integers(0, n_planes, points)
     for i in range(n_planes):
@@ -302,14 +331,19 @@ def surface_cloud(rng, points=4096):
         sel = which == i
         ab = rng.uniform(-0.9, 0.9, (int(sel.sum()), 2))
         out[sel] = rng.uniform(-0.5, 0.5, 3) + ab @ basis[:, :2].T
-    return np.clip(out, -0.95, 0.95)
+        nrm[sel] = basis[:, 2]
+    out = np.clip(out, -0.95, 0.95)
+    return (out, nrm) if normals else out
 
 
-def surface_clouds(seed=2):
+def surface_clouds(seed=2, normals=False):
     """A surface-like batch of BATCH clouds, for information beside the
-    uniform one."""
+    uniform one; with ``normals`` (points, normals)."""
     rng = np.random.default_rng(seed)
-    return np.stack([surface_cloud(rng) for _ in range(BATCH)])
+    clouds_ = [surface_cloud(rng, normals=normals) for _ in range(BATCH)]
+    if normals:
+        return tuple(np.stack(a) for a in zip(*clouds_))
+    return np.stack(clouds_)
 
 
 def taps_per_node(plan, d):
@@ -427,9 +461,9 @@ def check_bwd(outs, refs, kinds, kernel, dt):
 
 def attn_windows(cfg, plan, d, D, G):
     """The K1/K2 inputs of one attention site from the plan: window node
-    coords (BW, 3, K) int32, the key mask (BW, T) int32 (a relay slot,
-    valid when its window holds a node, ahead of the nodes when G = 1)
-    and pos_bnd."""
+    coords (BW, 3, K) int32, the key mask (BW, T) int32 (G relay slots
+    ahead of the nodes, slot g valid when the window's g-th chunk of K / G
+    nodes holds one) and pos_bnd."""
     import torch
 
     from hotformerloc_torch.models.layers import rpe_pos_bnd
@@ -441,8 +475,9 @@ def attn_windows(cfg, plan, d, D, G):
     xyz = xyz_w.permute(0, 1, 3, 2).reshape(BW, 3, K).to(
         torch.int32).contiguous()
     nmask = ow.window_key_mask(ctx.node_valid, K, D)
-    kmask = torch.cat([nmask.any(-1, keepdim=True), nmask], -1) \
-        if G else nmask
+    # relay slot g is valid when its chunk of K / G window nodes holds one
+    kmask = torch.cat([nmask.reshape(*nmask.shape[:2], G, K // G).any(-1),
+                       nmask], -1) if G else nmask
     mask = kmask.reshape(BW, K + G).to(torch.int32).contiguous()
     return xyz, mask, rpe_pos_bnd(K, D)
 
@@ -587,7 +622,8 @@ def attn_bwd_rows(dev, name, cfg, plan, cases, rnd, bound):
     return rows
 
 
-def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
+def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
+                normals=None):
     """The serving slice of ``cfg`` with seeded random weights: embed the
     batch through make_embed_fn in bf16 and fp32 and on the plain path at
     fp32. The launch counters, zeroed just before the bf16 run and read
@@ -601,8 +637,9 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
     information (the weights are random), with bf16 ms per batch (median
     of 5) and submaps/s. The batch must not overflow the octree. With
     ``spts`` the same checks and timing on that batch too (surf_*; its
-    overflow, the same on every path, is printed). Returns (launches per
-    bf16 forward, numbers)."""
+    overflow, the same on every path, is printed). ``normals``: the
+    batch's per-point normals, for the 'N' input feature. Returns
+    (launches per bf16 forward, numbers)."""
     from hotformerloc_torch.evaluation.embed import make_embed_fn
     from hotformerloc_torch.evaluation.evaluate import retrieval_topk
     from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
@@ -638,12 +675,12 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
     plain_model.set_use_kernels(False)
     embed_plain = make_embed_fn(plain_model, torch.float32)
     out = {"batch": len(pts)}
-    for tag, p in (("", pts), ("surf_", spts)):
+    for tag, p, nrm in (("", pts, normals), ("surf_", spts, None)):
         if p is None:
             continue
         kernels.reset_launches()
         with CountConv3d() as c3:
-            out_bf16 = embed_bf16(p, pmask)
+            out_bf16 = embed_bf16(p, pmask, nrm)
             torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         if c3.calls:
@@ -652,11 +689,11 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
         if launches != want:
             raise AssertionError(f"launches {launches} != expected {want}")
         kernels.reset_launches()
-        out_fp32 = embed_fp32(p, pmask)
+        out_fp32 = embed_fp32(p, pmask, nrm)
         if dict(kernels.LAUNCHES) != want_fp32:
             raise AssertionError(f"fp32 launches {kernels.LAUNCHES}")
         kernels.reset_launches()
-        out_plain = embed_plain(p, pmask)
+        out_plain = embed_plain(p, pmask, nrm)
         if any(kernels.LAUNCHES.values()):
             raise AssertionError(f"plain path launched {kernels.LAUNCHES}")
         overflow = {int(o["octree_overflow"]) for o in
@@ -689,7 +726,7 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
         _, idx = retrieval_topk(desc[1::2], desc[0::2], k=1)
 
         def run():
-            embed_bf16(p, pmask)
+            embed_bf16(p, pmask, nrm)
             torch.cuda.synchronize()
 
         run()
@@ -716,7 +753,8 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None):
     def octree_and_plan():           # as the serving forward builds it
         with torch.inference_mode():
             oc = build_batched_octree(pts, pmask, cfg.octree_depth,
-                                      cfg.min_depth, cfg.resolve_capacities())
+                                      cfg.min_depth, cfg.resolve_capacities(),
+                                      normals=normals)
             build_plan(oc, tap_lists=False)
         torch.cuda.synchronize()
 
@@ -755,29 +793,55 @@ def path_cases(cfg):
     """Every kernel shape of one forward of ``cfg``, with its launches
     per forward: window_attn (label, depth, C, H, dilation, G, n),
     octree_dwconv (label, depth, C, n), octree_conv (label, depth, C, O,
-    n). The stem's first conv (C = 3 input features) needs no dx."""
+    n). The stem's first conv (C = the input features) needs no dx. With
+    ``octf_use_rt`` the OctFormer blocks are H-OSA blocks (G = rt_size,
+    dilation 1); with ``disable_rt`` the pyramid levels run dilated
+    OctFormer blocks; with ``xcpe`` every CPE is a full conv (K5);
+    without ``downsample_input_embeddings`` the stem is num_down convs at
+    the octree depth."""
+    from hotformerloc_torch.models.hotformerloc import feature_channels
     nb_octf, nb_hotf = cfg.num_blocks[0], cfg.num_blocks[-1]
     octf_c, octf_h = cfg.channels[0], cfg.num_heads[0]
     _, pyr_c = cfg.stage_channels()
     _, pyr_h = cfg.stage_heads()
-    td = cfg.transformer_depth
-    attn = [("octf_dil1", td, octf_c, octf_h, 1, 0, (nb_octf + 1) // 2),
-            ("octf_dil%d" % cfg.dilation, td, octf_c, octf_h,
-             cfg.dilation, 0, nb_octf // 2)]
-    attn += [(f"hosa_d{d}", d, pyr_c[j], pyr_h[j], 1, 1, nb_hotf)
-             for j, d in enumerate(cfg.pyramid_depths)]
-    dw = [(f"cpe_d{td}", td, octf_c, nb_octf)]
-    dw += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
-           for j, d in enumerate(cfg.pyramid_depths)]
-    if cfg.adape_mode is None:         # the relay-token init's CPE
-        dw += [(f"rt_init_cpe_d{d}", d, pyr_c[j], 1)
-               for j, d in enumerate(cfg.pyramid_depths)]
-    chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
-    conv = [(f"stem_conv{i}_d{cfg.octree_depth - i}", cfg.octree_depth - i,
-             3 if i == 0 else chans[i], chans[i], 1)
-            for i in range(cfg.stem_down)]
-    conv.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
-    return {"window_attn": attn, "octree_dwconv": dw, "octree_conv": conv}
+    td, G, D = cfg.transformer_depth, cfg.rt_size, cfg.dilation
+    if cfg.octf_use_rt:
+        attn = [(f"octf_rt{G}", td, octf_c, octf_h, 1, G, nb_octf)]
+    else:
+        attn = [("octf_dil1", td, octf_c, octf_h, 1, 0, (nb_octf + 1) // 2),
+                ("octf_dil%d" % D, td, octf_c, octf_h, D, 0, nb_octf // 2)]
+    for j, d in enumerate(cfg.pyramid_depths):
+        if cfg.disable_rt:
+            attn += [(f"octf_l{j}_d{d}_dil1", d, pyr_c[j], pyr_h[j], 1, 0,
+                      (nb_hotf + 1) // 2),
+                     (f"octf_l{j}_d{d}_dil{D}", d, pyr_c[j], pyr_h[j], D, 0,
+                      nb_hotf // 2)]
+        else:
+            attn.append((f"hosa_d{d}" + (f"_rt{G}" if G > 1 else ""), d,
+                         pyr_c[j], pyr_h[j], 1, G, nb_hotf))
+    cpe = [(f"cpe_d{td}", td, octf_c, nb_octf)]
+    cpe += [(f"cpe_d{d}", d, pyr_c[j], nb_hotf)
+            for j, d in enumerate(cfg.pyramid_depths)]
+    if cfg.adape_mode is None and not cfg.disable_rt:
+        cpe += [(f"rt_init_cpe_d{d}", d, pyr_c[j], 1)       # the relay-token
+                for j, d in enumerate(cfg.pyramid_depths)]  # init's CPE
+    dw, conv = [], []
+    if cfg.xcpe:
+        conv += [(f"x{lab}", d, C, C, n) for lab, d, C, n in cpe]
+    else:
+        dw = cpe
+    cin, od = feature_channels(cfg.input_features), cfg.octree_depth
+    if not cfg.downsample_input_embeddings:
+        stem = [(f"stem_conv{i}_d{od}", od, cin if i == 0 else octf_c,
+                 octf_c, 1) for i in range(cfg.stem_down)]
+    else:
+        chans = [int(octf_c * 2**i) for i in range(-cfg.stem_down, 1)]
+        stem = [(f"stem_conv{i}_d{od - i}", od - i,
+                 cin if i == 0 else chans[i], chans[i], 1)
+                for i in range(cfg.stem_down)]
+        stem.append((f"stem_proj_d{td}", td, chans[-1], chans[-1], 1))
+    return {"window_attn": attn, "octree_dwconv": dw,
+            "octree_conv": stem + conv}
 
 
 def bwd_kernel_phase(torch, dev, cfg, pts, spts, pmask, cases, bound, rnd,
@@ -976,16 +1040,92 @@ def scatter_phase(torch, dev, cfg, pts, pmask):
     return out
 
 
+def bn_shift_params(model):
+    """Names of the parameters that only shift a MaskedBatchNorm's input
+    by a constant per channel (the bias of its conv, and of an xCPE's
+    conv and Linear): the batch mean removes the shift, so in train mode
+    their gradient is 0."""
+    from hotformerloc_torch.models.layers import CPE, MaskedBatchNorm
+    names = set()
+    for name, mod in model.named_modules():
+        if not isinstance(getattr(mod, "norm", None), MaskedBatchNorm):
+            continue
+        if isinstance(mod, CPE) and mod.xcpe:
+            names.add(f"{name}.linear.bias")
+        if hasattr(mod, "bias"):             # not a depthwise CPE's
+            names.add(f"{name}.bias")
+    return names
+
+
+def _worst(got, want, floor=1.0):
+    """max over tensors of max |got - want| / max(floor, max |want|)."""
+    return max(float((got[k].float() - w.float()).abs().max())
+               / max(floor, float(w.float().abs().max()))
+               for k, w in want.items())
+
+
+def running_stats_checks(torch, dev, cfg, batch, bufs, make, remat_check):
+    """The running statistics after train_phase's fp32 step (``bufs``:
+    buffers by path): kernel vs plain; against stage 1's last microbatch
+    applied once to the initial state; under checkpointing."""
+    from hotformerloc_torch.models.hotformerloc import build_model_plan
+    from hotformerloc_torch.training.step import drop_generator
+    out = {"running_stat_buffers": len(bufs["kernel"])}
+    err = _worst(bufs["kernel"], bufs["plain"])
+    if not err <= 1e-5:
+        raise AssertionError(f"running stats, kernel vs plain path: {err}")
+    out["running_stats_kernel_vs_plain"] = err
+    m, _ = make(torch.float32, True, cfg, True)
+    sl = slice((ACCUM - 1) * MICRO, ACCUM * MICRO)
+    nrm = batch.get("normals")
+    g = drop_generator(0, ACCUM - 1)         # the step's draws (seed 0)
+    masks = m.draw_drop_masks(MICRO, g)
+    dseed = int(torch.randint(2 ** 62, (), generator=g))
+    m.train()
+    with torch.no_grad():
+        plan = build_model_plan(cfg, batch["points"][sl], batch["pmask"][sl],
+                                normals=None if nrm is None else nrm[sl])
+        m(batch["points"][sl], batch["pmask"][sl], plan=plan,
+          drop_masks=masks, dropout_seed=dseed)
+    m.commit_stats()
+    err = _worst(dict(m.named_buffers()), bufs["kernel"])
+    if not err <= 1e-6:
+        raise AssertionError(f"running stats != stage 1's last microbatch "
+                             f"applied once: {err}")
+    out["running_stats_vs_last_microbatch"] = err
+    del m
+    if remat_check:
+        m, step = make(torch.float32, True, dataclasses.replace(
+            cfg, grad_checkpoint=True, remat_policy="save_hot"), True)
+        step(batch, 0)
+        err = _worst(dict(m.named_buffers()), bufs["kernel"])
+        if not err <= 1e-6:
+            raise AssertionError(f"running stats under checkpointing: {err}")
+        out["running_stats_checkpointed_vs_not"] = err
+        del m, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
-                timed=10):
+                timed=10, normals=None, fp32_cfg=None, remat_check=False):
     """The multistage train step (batch 32 as 4 microbatches of 8): fp32
-    kernel vs plain gradients, then bf16 launch counts (the shape table's,
-    which must equal ``expect``, STEP_LAUNCHES by default) and ``timed``
-    timed steps. Returns (launches of one bf16 step, the phase's
-    numbers)."""
+    kernel vs plain gradients (of ``fp32_cfg``, ``cfg`` when None), then
+    bf16 launch counts (the shape table's, which must equal ``expect``,
+    STEP_LAUNCHES by default) and ``timed`` timed steps. With attention
+    dropout the bf16 step's forwards take the einsum route: no K1/K2.
+    A model with running statistics also has them checked after the fp32
+    step: kernel path against plain path (within 1e-5 of max(1, |plain|))
+    and against one train-mode forward of stage 1's last microbatch from
+    the initial state, with the step's masks (within 1e-6); with
+    ``remat_check`` also the step under grad_checkpoint ('save_hot')
+    against the step without (within 1e-6: the recompute must not update
+    them again). ``normals``: the batch's point normals. Returns
+    (launches of one bf16 step, the phase's numbers)."""
     from hotformerloc_torch.losses.losses import make_loss
     from hotformerloc_torch.models.hotformerloc import (HOTFormerLoc,
                                                         build_model_plan)
+    from hotformerloc_torch.models.layers import BatchNorm
     from hotformerloc_torch.ops import kernels
     from hotformerloc_torch.ops.kernels import octree_conv as kconv
     from hotformerloc_torch.training.optim import (lr_schedule,
@@ -998,25 +1138,37 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
              "positives_mask": torch.from_numpy(
                  same & ~np.eye(BATCH, dtype=bool)).to(dev),
              "negatives_mask": torch.from_numpy(~same).to(dev)}
+    if normals is not None:
+        batch["normals"] = normals
+    fp32_cfg = fp32_cfg or cfg
     loss_fn = make_loss("truncatedsmoothap", positives_per_query=4)
     sched = lr_schedule(5e-4, steps_per_epoch=100, epochs=150,
                         warmup_epochs=5, milestones=[100])
 
-    def make(dtype, use_kernels):
+    def make(dtype, use_kernels, cfg=cfg, two_pass=False):
         m = HOTFormerLoc(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0),
                          dtype=dtype)
         m.set_use_kernels(use_kernels)
+        for mod in m.modules():       # the heads' BatchNorms, see below
+            if isinstance(mod, BatchNorm):
+                mod.two_pass = two_pass
         opt = make_optimizer(m.parameters(), "adam", sched, weight_decay=1e-4)
         return m, make_train_step(m, opt, loss_fn, StepConfig(
             accum_steps=ACCUM, check_recompute=True))
 
     out = {"config": name, "batch": BATCH, "accum_steps": ACCUM,
            "drop_path": cfg.drop_path, "grad_checkpoint": False}
-    # fp32, TF32 off (set in main): kernel path against plain path
-    grads = {}
+    # fp32, TF32 off (set in main): kernel path against plain path. A
+    # head's BatchNorm over the microbatch's pooled descriptors
+    # (PyramidOctGeM, -gc) takes its variance in two passes here
+    # (layers.py BatchNorm.two_pass, the same function): flax's
+    # E[x^2] - E[x]^2 there amplifies the two paths' fp32 rounding
+    # differences into the whole gradient (variant B's differed by 2.4x
+    # GRAD_TOL with it, 0.08-0.24x without; H100 80GB HBM3, 700 W)
+    grads, bufs = {}, {}
     for tag, use_kernels in (("kernel", True), ("plain", False)):
-        m, step = make(torch.float32, use_kernels)
+        m, step = make(torch.float32, use_kernels, fp32_cfg, True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1029,15 +1181,32 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
             stats["recompute_max_abs"])
         grads[tag] = {n: p.grad.detach().clone()
                       for n, p in m.named_parameters()}
+        bufs[tag] = {n: b.detach().clone() for n, b in m.named_buffers()}
+        zero = bn_shift_params(m)
         del m, step, stats
         torch.cuda.empty_cache()
-    worst, bad = 0.0, []
+    if bufs["kernel"]:
+        out.update(running_stats_checks(torch, dev, fp32_cfg, batch, bufs,
+                                        make, remat_check))
+    worst, worst_name, bad = 0.0, None, []
+    total = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                 for g in grads["plain"].values())))
     for n, gp in grads["plain"].items():
-        d = float((grads["kernel"][n] - gp).norm())
-        lim = GRAD_TOL[0] * float(gp.norm()) + GRAD_TOL[1]
-        worst = max(worst, d / lim)
-        if not (d <= lim and torch.isfinite(grads["kernel"][n]).all()):
+        gk = grads["kernel"][n]
+        if n in zero:
+            # 0 in exact arithmetic: both paths' values are fp32 rounding
+            # of 0, which the relative bar cannot compare; each must be
+            # within ZERO_GRAD_TOL of the whole gradient's norm
+            lim = ZERO_GRAD_TOL * total
+            d = max(float(gk.norm()), float(gp.norm()))
+        else:
+            d = float((gk - gp).norm())
+            lim = GRAD_TOL[0] * float(gp.norm()) + GRAD_TOL[1]
+        if d / lim > worst:
+            worst, worst_name = d / lim, n
+        if not (d <= lim and torch.isfinite(gk).all()):
             bad.append((n, d, lim))
+    out["fp32_zero_grad_tensors"] = len(zero)
     if bad:
         raise AssertionError(f"fp32 kernel vs plain gradients: {len(bad)} "
                              f"tensors off, e.g. {bad[:3]}")
@@ -1045,7 +1214,8 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
         raise AssertionError("stage-3 embeddings differ from stage 1: "
                              f"{out['fp32_kernel_recompute_max_abs']}")
     out.update(fp32_grad_tensors=len(grads["plain"]),
-               fp32_grad_worst_ratio_to_limit=worst)
+               fp32_grad_worst_ratio_to_limit=worst,
+               fp32_grad_worst_tensor=worst_name)
     del grads
     torch.cuda.empty_cache()
 
@@ -1068,6 +1238,8 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
         want[k + "_bwd"] = per_fwd * ACCUM
     if want != (expect or STEP_LAUNCHES):
         raise AssertionError(f"train-path shape table is off: {want}")
+    if cfg.attn_drop > 0:     # training takes the einsum route, as JAX's
+        want.update(window_attn=0, window_attn_bwd=0)
     # every bf16 K1 / K2 launch of the step takes the tensor-core bodies,
     # and every K5 / K6 launch that conv_body assigns to them
     conv_tc = sum(c[-1] for c in cases["octree_conv"]
@@ -1107,7 +1279,8 @@ def train_phase(torch, dev, name, cfg, pts, pmask, cases, expect=None,
         with torch.no_grad():
             for i in range(ACCUM):
                 sl = slice(i * MICRO, (i + 1) * MICRO)
-                build_model_plan(cfg, pts[sl], pmask[sl])
+                build_model_plan(cfg, pts[sl], pmask[sl], normals=(
+                    None if normals is None else normals[sl]))
         torch.cuda.synchronize()
 
     plans()
@@ -2109,6 +2282,238 @@ def configs_phase(torch, dev, smi, rnd):
     return k1, k2, launches, out
 
 
+# ablations phase: three variants of oxford_config at full width and
+# depth, each with the launches per bf16 forward its shape table gives
+# (path_cases), and the kernel shapes the main path never gives the
+# kernels, held against their plain versions and timed
+def ablation_variants(base):
+    """name -> (overrides of oxford_config, launches per bf16 forward,
+    the normals of the batch are needed). C's capacities are
+    oxford_config's last four entries (depths 6-9: without the stem's
+    downsampling the transformer starts at depth 9)."""
+    return {
+        "A": (dict(conv_norm="batchnorm", xcpe=True, rt_size=2,
+                   rt_propagation=True, rt_propagation_scale=0.5,
+                   pooling="AttnPoolMixer"),
+              {"window_attn": 34, "octree_dwconv": 0, "octree_conv": 37},
+              False),
+        "B": (dict(octf_use_rt=True, conv_norm="powernorm",
+                   pooling="PyramidOctGeMgc", input_features="NDLP",
+                   proj_drop=0.1, attn_drop=0.1),
+              {"window_attn": 34, "octree_dwconv": 34, "octree_conv": 3},
+              True),
+        "C": (dict(disable_rt=True, downsample_input_embeddings=False,
+                   pooling="PyramidOctGeM", capacities=base.capacities[-4:]),
+              {"window_attn": 34, "octree_dwconv": 34, "octree_conv": 2},
+              False),
+    }
+
+
+# the new kernel shapes held per variant: (kernel, case label)
+ABLATION_ROWS = {
+    "A": [("window_attn", "hosa_d6_rt2"), ("window_attn", "hosa_d5_rt2"),
+          ("window_attn", "hosa_d4_rt2"), ("octree_conv", "xcpe_d7"),
+          ("octree_conv", "xcpe_d6"), ("octree_conv", "xcpe_d5"),
+          ("octree_conv", "xcpe_d4")],
+    "B": [("window_attn", "octf_rt1")],
+    "C": [("window_attn", "octf_dil1"), ("window_attn", "octf_dil4"),
+          ("octree_dwconv", "cpe_d9"), ("octree_conv", "stem_conv1_d9")],
+}
+
+
+def conv_rows(torch, name, plan, mplan, cases, rnd, bound, need_dx):
+    """K5 (batch ``plan``) and K6 (microbatch ``mplan``) at each octree_conv
+    case against their plain versions at fp32 and bf16, CUDA-event times
+    of the kernel, its CUDA-core body where the tensor-core one runs, and
+    the plain version, with the bound. Returns (K5 rows, K6 rows)."""
+    from hotformerloc_torch.ops import conv as plain
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    fwd, bwd = [], []
+    for label, d, C, O, per_fwd in cases:
+        for pl, rows, back in ((plan, fwd, False), (mplan, bwd, True)):
+            lev = pl.octree.level(d)
+            neigh, tl = pl.neighs[lev], pl.taps[lev]
+            B, N, _ = neigh.shape
+            taps, per_node = taps_per_node(pl, d)
+            x32, dy32 = rnd(B, N, C), rnd(B, N, O)
+            w32, b32 = rnd(27, C, O, scale=(27 * C) ** -0.5), rnd(O)
+            row = {"case": label, "config": name, "shape": [B, N, C, O],
+                   "valid_taps_per_node": per_node,
+                   ("per_step" if back else "per_forward"):
+                   per_fwd * (ACCUM if back else 1)}
+            for dt, tdt in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+                x, w, b, dy = (t.to(tdt) for t in (x32, w32, b32, dy32))
+                body = kconv.conv_body(tdt, C, O)
+                if back:
+                    def k(body=None, x=x, w=w, dy=dy):
+                        return kconv.octree_conv_bwd(x, neigh, w, dy, need_dx,
+                                                     taps=tl, body=body)
+
+                    def ref(x=x, w=w, dy=dy):
+                        return plain.octree_conv_bwd(x, neigh, w, dy, need_dx)
+                    kinds = ("act", "weight", "weight")
+                    err = check_bwd(k(), ref(), kinds, "octree_conv_bwd", dt)
+                    nbytes = (B * N * (C * (2 if need_dx else 1) + O)
+                              * x.element_size() + neigh.numel() * 4
+                              + 27 * C * O * (x.element_size() + 4) + O * 4)
+                    flops = (4 if need_dx else 2) * taps * C * O
+                else:
+                    def k(body=None, x=x, w=w, b=b):
+                        return kconv.launch_conv(x, neigh, w, b, body=body)
+
+                    def ref(x=x, w=w, b=b):
+                        return plain.octree_conv(x, neigh, w, b)
+                    err = compare(k(), ref(), "octree_conv", dt)
+                    nbytes = (B * N * (C + O) * x.element_size()
+                              + neigh.numel() * 4
+                              + (w.numel() + O) * x.element_size())
+                    flops = 2 * taps * C * O
+                row.update({f"body_{dt}": body, f"err_{dt}": err,
+                            f"ms_{dt}": time_ms(k),
+                            f"plain_ms_{dt}": time_ms(ref),
+                            f"library_ms_{dt}": None})
+                row[f"cc_ms_{dt}"] = (time_ms(lambda: k("cc"))
+                                      if body == "tc" else row[f"ms_{dt}"])
+                row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                    nbytes, flops, dt)
+            rows.append(row)
+            emit({"phase": "ablation_kernel",
+                  "kernel": "octree_conv_bwd" if back else "octree_conv",
+                  **row})
+    return fwd, bwd
+
+
+def dw_rows(torch, name, plan, mplan, cases, rnd, bound):
+    """K3 (batch ``plan``) and K4 (microbatch ``mplan``) at each
+    octree_dwconv case against their plain versions, timed, with the
+    bound. Returns (K3 rows, K4 rows)."""
+    from hotformerloc_torch.ops import conv as plain
+    from hotformerloc_torch.ops.kernels import octree_conv as kconv
+    fwd, bwd = [], []
+    for label, d, C, per_fwd in cases:
+        for pl, rows, back in ((plan, fwd, False), (mplan, bwd, True)):
+            lev = pl.octree.level(d)
+            neigh, tl = pl.neighs[lev], pl.taps[lev]
+            B, N, _ = neigh.shape
+            taps, per_node = taps_per_node(pl, d)
+            x32, dy32 = rnd(B, N, C), rnd(B, N, C)
+            w32 = rnd(27, C, scale=(27 * C) ** -0.5)
+            row = {"case": label, "config": name, "shape": [B, N, C],
+                   "valid_taps_per_node": per_node,
+                   ("per_step" if back else "per_forward"):
+                   per_fwd * (ACCUM if back else 1)}
+            for dt, tdt in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+                x, w, dy = (t.to(tdt) for t in (x32, w32, dy32))
+                esz = x.element_size()
+                if back:
+                    def k(x=x, w=w, dy=dy):
+                        return kconv.octree_dwconv_bwd(x, neigh, w, dy,
+                                                       taps=tl)
+
+                    def ref(x=x, w=w, dy=dy):
+                        return plain.octree_dwconv_bwd(x, neigh, w, dy)
+                    err = check_bwd(k(), ref(), ("act", "weight"),
+                                    "octree_dwconv_bwd", dt)
+                    nbytes = (3 * B * N * C * esz + neigh.numel() * 4
+                              + 27 * C * (esz + 4))
+                    flops = 4 * taps * C
+                else:
+                    def k(x=x, w=w):
+                        return kconv.octree_dwconv(x, neigh, w)
+
+                    def ref(x=x, w=w):
+                        return plain.octree_dwconv(x, neigh, w)
+                    err = compare(k(), ref(), "octree_dwconv", dt)
+                    nbytes = (2 * B * N * C * esz + neigh.numel() * 4
+                              + w.numel() * esz)
+                    flops = 2 * taps * C
+                row.update({f"err_{dt}": err, f"ms_{dt}": time_ms(k),
+                            f"plain_ms_{dt}": time_ms(ref),
+                            f"library_ms_{dt}": None})
+                row[f"bound_ms_{dt}"], row[f"bound_by_{dt}"] = bound(
+                    nbytes, flops, dt)
+            rows.append(row)
+            emit({"phase": "ablation_kernel",
+                  "kernel": "octree_dwconv_bwd" if back else "octree_dwconv",
+                  **row})
+    return fwd, bwd
+
+
+def ablations_phase(torch, dev, smi, rnd):
+    """Variants A, B and C of oxford_config (``ablation_variants``) at full
+    width and depth on the 32 uniform clouds (B, which needs normals, on
+    the 32 surface-like clouds with their exact plane normals): the
+    kernel rows of ABLATION_ROWS (K1/K2 at T = 50 and 49, K5/K6 at the
+    xCPE's 128 x 128 and 256 x 256, K3/K4 and the stem's K5/K6 at depth
+    9); serve_check (launches per bf16 forward as the variant's table);
+    train_phase with 5 timed steps (the fp32 gradient comparison at
+    dropout 0, the running statistics checked, A's also under
+    checkpointing; B's bf16 step, with its dropout, runs no K1/K2).
+    Returns (kernel rows by kernel name, launches by run, the phase's
+    numbers)."""
+    from hotformerloc_torch.models.config import oxford_config
+    from hotformerloc_torch.models.hotformerloc import build_model_plan
+    from hotformerloc_torch.utils.profiling import bound_ms
+
+    base = oxford_config()
+    pts = torch.from_numpy(clouds()).to(dev)
+    pmask = torch.ones(pts.shape[:2], dtype=torch.bool, device=dev)
+    spts, snrm = (torch.from_numpy(a).to(dev)
+                  for a in surface_clouds(normals=True))
+    rows = {k: [] for k in MODEL_KERNELS}
+    launches, out = {}, {"card": smi, "variants": {}}
+    for name, (over, per_forward, normals) in ablation_variants(
+            base).items():
+        t0 = time.time()
+        cfg = oxford_config(grad_checkpoint=False, **over)
+        label = f"ablation_{name}"
+        p, nrm = (spts, snrm) if normals else (pts, None)
+        cases = path_cases(cfg)
+        want = ABLATION_ROWS[name]
+        sub = {k: [c for c in cs if (k, c[0]) in want]
+               for k, cs in cases.items()}
+        if sum(map(len, sub.values())) != len(want):
+            raise AssertionError(f"{label}: rows {want} not in {cases}")
+        plan = build_model_plan(cfg, p, pmask, normals=nrm)
+        mplan = build_model_plan(cfg, p[:MICRO], pmask[:MICRO],
+                                 normals=None if nrm is None else nrm[:MICRO])
+        k1 = attn_fwd_rows(dev, label, cfg, plan, sub["window_attn"], rnd,
+                           bound_ms)
+        k2 = attn_bwd_rows(dev, label, cfg, mplan, sub["window_attn"], rnd,
+                           bound_ms)
+        for r in k1 + k2:
+            r["config"] = label
+        rows["window_attn"] += k1
+        rows["window_attn_bwd"] += k2
+        for k, (f, b) in (("octree_conv", conv_rows(
+                torch, label, plan, mplan, sub["octree_conv"], rnd,
+                bound_ms, need_dx=True)), ("octree_dwconv", dw_rows(
+                torch, label, plan, mplan, sub["octree_dwconv"], rnd,
+                bound_ms))):
+            rows[k] += f
+            rows[k + "_bwd"] += b
+        del plan, mplan
+        torch.cuda.empty_cache()
+        launches[f"{name}_forward"], serve = serve_check(
+            torch, cfg, p, pmask, cases, per_forward, normals=nrm)
+        expect = {}
+        for k, n in per_forward.items():         # stages 1 and 3; backward
+            expect.update({k: n * ACCUM * 2, k + "_bwd": n * ACCUM})
+        launches[f"{name}_step"], train = train_phase(
+            torch, dev, label, cfg, p, pmask, cases, expect, timed=5,
+            normals=nrm, fp32_cfg=dataclasses.replace(
+                cfg, attn_drop=0.0, proj_drop=0.0), remat_check=name == "A")
+        out["variants"][name] = {
+            "overrides": dict(over), "batch": "surface-like, plane normals"
+            if normals else "uniform", "serve": serve, "train": train,
+            "seconds": time.time() - t0}
+        emit({"phase": "ablation", "variant": name,
+              **out["variants"][name]})
+    return rows, launches, out
+
+
 def dp_retrieval_worker(cdir):
     """One rank of the dp phase's (c), over gloo on card 0: the sharded
     retrieval_topk of cdir/in.npz, timed after a warm-up; rank 0 writes
@@ -2550,6 +2955,13 @@ def main():
     emit({"phase": "configs", **configs,
           "seconds": round(time.time() - t_phase, 1)})
 
+    # ---- 6f. the off-path branches: variants A, B, C --------------------
+    t_phase = time.time()
+    abl_rows, abl_launches, ablations = ablations_phase(torch, dev, smi, rnd)
+    abl_names = sorted(ablations["variants"])
+    emit({"phase": "ablations", "variants": abl_names,
+          "seconds": round(time.time() - t_phase, 1)})
+
     # ---- 7. the probe tools ---------------------------------------------
     t_phase = time.time()
     probe_line, tools = probes_phase(torch)
@@ -2681,6 +3093,17 @@ def main():
             "launches_wild_places": cfg_launches[
                 "wild_places_step" if is_bwd
                 else "wild_places_forward"][kname],
+            "launches_ablations": {
+                v: abl_launches[f"{v}_{'step' if is_bwd else 'forward'}"][
+                    kname] for v in abl_names},
+            "launches_ablations_train_step": {
+                v: abl_launches[f"{v}_step"][kname]
+                for v in abl_names},
+            "ablations": {f"{r['config']}:{r['case']}": {k: r.get(k) for k in (
+                "shape", "heads", mult, "body_bf16", "err_fp32", "err_bf16",
+                "ms_bf16", "cc_ms_bf16", "plain_ms_bf16", "bound_ms_bf16",
+                "bound_by_bf16", "library_ms_bf16", "ms_fp32")}
+                for r in abl_rows[kname]},
             "max_abs_err": max(r["err_fp32"] for r in rows),
             "max_abs_err_bf16": max(r["err_bf16"] for r in rows),
             "ms": total("ms_bf16"), "plain_ms": total("plain_ms_bf16"),

@@ -6,7 +6,7 @@ evaluator drives it (bf16 compute, evaluation/pnv_evaluate.py).
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -23,8 +23,9 @@ def compute_dtype(device) -> torch.dtype:
 def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
                   ) -> Callable[[torch.Tensor, torch.Tensor],
                                 Dict[str, torch.Tensor]]:
-    """Return ``embed(points, pmask) -> {'global', 'octree_overflow',
-    'band_overflow'}`` running ``model`` in ``dtype`` (a converted copy
+    """Return ``embed(points, pmask, normals=None) -> {'global',
+    'octree_overflow', 'band_overflow'}`` (``normals`` (B, P, 3) for the
+    'N' input feature) running ``model`` in ``dtype`` (a converted copy
     when the model's parameters have another dtype) under
     ``torch.inference_mode``. Inputs are moved to the model's device.
     cuDNN TF32 is switched off during the call so fp32 runs stay fp32."""
@@ -33,12 +34,15 @@ def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
     m.eval()
     device = params.device
 
-    def embed(points: torch.Tensor, pmask: torch.Tensor):
+    def embed(points: torch.Tensor, pmask: torch.Tensor,
+              normals: Optional[torch.Tensor] = None):
         prev = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
             with torch.inference_mode():
-                return m(points.to(device), pmask.to(device), dtype=dtype)
+                return m(points.to(device), pmask.to(device), dtype=dtype,
+                         normals=None if normals is None
+                         else normals.to(device))
         finally:
             torch.backends.cudnn.allow_tf32 = prev
 

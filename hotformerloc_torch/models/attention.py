@@ -7,18 +7,26 @@ over the same parameters: ``WindowAttentionFn`` (ops/kernels/
 window_attn.py: the K1 CUDA kernel forward, K2 backward) and the plain
 einsum formulation differentiated by autograd (``use_kernels = False``).
 They differ only on query rows whose slot is invalid, which the kernel
-zeroes and no consumer reads, so their gradients agree too. Attention
-and projection dropout are 0.0 in every shipped config and not ported
-(``check_supported`` refuses other rates).
+zeroes and no consumer reads, so their gradients agree too.
+
+Dropout (``attn_drop`` on the attention weights, ``proj_drop`` after the
+output projection; 0.0 in every shipped config) is active in train mode
+only. With attention dropout in training the JAX package leaves its
+Pallas kernel for its XLA einsum formulation (hotformerloc_tpu/models/
+attention.py ``can_fuse``), the one case where it does; ``WindowAttention``
+does the same and runs its einsum formulation, the counterpart of JAX's
+XLA path (not K1's plain version standing in for the kernel). In eval
+mode, or with ``proj_drop`` alone, K1/K2 run.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from hotformerloc_torch.models.layers import linear, param, rpe_pos_bnd
+from hotformerloc_torch.models.layers import (Dropout, linear, param,
+                                              rpe_pos_bnd)
 from hotformerloc_torch.ops.kernels.window_attn import window_attention
-from hotformerloc_torch.ops.rpe import rpe_bias_reference
+from hotformerloc_torch.ops.rpe import rpe_bias
 from hotformerloc_torch.ops.window import MASK_VALUE
 
 
@@ -39,7 +47,8 @@ class WindowAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, patch_size: int,
                  dilation: int = 1, rt_per_window: int = 0,
-                 use_rpe: bool = True, device=None):
+                 use_rpe: bool = True, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.rt_per_window = rt_per_window
@@ -49,10 +58,14 @@ class WindowAttention(nn.Module):
                                 "trunc", 0.02, device=device)
                           if use_rpe else None)
         self.proj = linear(dim, dim, device=device)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
-    def forward(self, x, key_mask, xyz_w=None):
+    def forward(self, x, key_mask, xyz_w=None, coord_range=None):
         """x: (B, W, T, C); key_mask: (B, W, T) bool; xyz_w: (B, W, K, 3)
-        int window node coords (None disables the RPE)."""
+        int window node coords (None disables the RPE), all below
+        ``coord_range`` (2^depth; the einsum route's table gradient
+        needs it, as JAX's does)."""
         B, W, T, C = x.shape
         H = self.num_heads
         G = self.rt_per_window
@@ -60,7 +73,8 @@ class WindowAttention(nn.Module):
         hd = C // H
         use_rpe = self.rpe_table is not None and xyz_w is not None
         qkv = self.qkv(x)
-        if self.use_kernels:
+        drop = self.attn_drop
+        if self.use_kernels and (drop.seed is None or drop.rate <= 0.0):
             # strided views of the projection, no copies: the kernels
             # take rows 3C apart
             q, k, v = (qkv[..., i * C:(i + 1) * C].reshape(B * W, T, C)
@@ -82,23 +96,26 @@ class WindowAttention(nn.Module):
             logits = torch.einsum("bwthd,bwshd->bwhts", q.float(),
                                   k.float()) * hd ** -0.5
             if use_rpe:
-                bias = rpe_bias_reference(
-                    self.rpe_table.t(), xyz_w, self.bnd).float()
+                bias = rpe_bias(self.rpe_table.t(), xyz_w, self.bnd,
+                                coord_range).float()
                 logits[..., G:, G:] = logits[..., G:, G:] + bias
-            attn = masked_softmax(logits, key_mask, 2)
+            attn = drop(masked_softmax(logits, key_mask, 2))
             out = torch.einsum("bwhts,bwshd->bwthd", attn.to(x.dtype), v)
             out = out.reshape(B, W, T, C)
-        return self.proj(out)
+        return self.proj_drop(self.proj(out))
 
 
 class TokenAttention(nn.Module):
     """Global masked MHSA over (B, M, C) tokens (the RTSA core)."""
 
-    def __init__(self, dim: int, num_heads: int, device=None):
+    def __init__(self, dim: int, num_heads: int, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, device=None):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = linear(dim, 3 * dim, device=device)
         self.proj = linear(dim, dim, device=device)
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
 
     def forward(self, x, key_mask):
         B, M, C = x.shape
@@ -108,9 +125,9 @@ class TokenAttention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         logits = torch.einsum("bthd,bshd->bhts", q.float(),
                               k.float()) * hd ** -0.5
-        attn = masked_softmax(logits, key_mask, 2)
+        attn = self.attn_drop(masked_softmax(logits, key_mask, 2))
         out = torch.einsum("bhts,bshd->bthd", attn.to(x.dtype), v)
-        return self.proj(out.reshape(B, M, C))
+        return self.proj_drop(self.proj(out.reshape(B, M, C)))
 
 
 class AdaptivePooling(nn.Module):

@@ -34,9 +34,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
                                               RelayTokenBlock)
 from hotformerloc_torch.models.config import ADAPE_STATS, ModelConfig
+from hotformerloc_torch.models.attention import TokenAttention
 from hotformerloc_torch.models.layers import (CPE, ADaPE, Downsample,
-                                              DropPath, OctreeConvNormRelu,
-                                              OctreeDownConvNormRelu, linear)
+                                              DropPath, Dropout,
+                                              OctreeConvNormRelu,
+                                              OctreeDownConvNormRelu, cast,
+                                              layer_norm, linear, param)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import OctreePlan
 
@@ -61,23 +64,26 @@ def run_block(cfg: ModelConfig, block: nn.Module, *args):
     """``block(*args)``, under activation checkpointing when
     ``cfg.grad_checkpoint`` is set and autograd records, keeping the
     outputs ``cfg.remat_policy`` names (``REMAT_SAVED_OPS``). The DropPath
-    masks set on the block now are handed to the recompute (the model
-    clears them once its forward returns, before the backward runs), and
-    the block draws no randomness, so the recompute equals the forward."""
+    masks and Dropout seeds set on the block now are handed to the
+    recompute (the model clears them once its forward returns, before the
+    backward runs), so the recompute equals the forward. Its running
+    statistics are staged again, to the same values (layers.py
+    ``RunningStats``)."""
     if not (cfg.grad_checkpoint and torch.is_grad_enabled()):
         return block(*args)
-    sites = [m for m in block.modules() if isinstance(m, DropPath)]
-    masks = [s.mask for s in sites]
+    sites = [(m, "mask" if isinstance(m, DropPath) else "seed")
+             for m in block.modules() if isinstance(m, (DropPath, Dropout))]
+    drawn = [getattr(m, a) for m, a in sites]
 
-    def run(*a):
-        prev = [s.mask for s in sites]
-        for s, m in zip(sites, masks):
-            s.mask = m
+    def run(*args_):
+        prev = [getattr(m, a) for m, a in sites]
+        for (m, a), v in zip(sites, drawn):
+            setattr(m, a, v)
         try:
-            return block(*a)
+            return block(*args_)
         finally:
-            for s, m in zip(sites, prev):
-                s.mask = m
+            for (m, a), v in zip(sites, prev):
+                setattr(m, a, v)
 
     saved = REMAT_SAVED_OPS[cfg.remat_policy]
     if not saved:
@@ -87,51 +93,102 @@ def run_block(cfg: ModelConfig, block: nn.Module, *args):
 
 
 class PatchEmbed(nn.Module):
-    """Conv stem: num_down x [27-tap conv -> stride-2 conv] doubling the
-    channels from dim/2^num_down, then a 27-tap projection to ``dim``."""
+    """Conv stem. With ``downsample``: num_down x [27-tap conv -> stride-2
+    conv] doubling the channels from dim/2^num_down, then a 27-tap
+    projection to ``dim``. Without: num_down 27-tap convs to ``dim`` at
+    the finest depth (JAX models/backbone.py:84-90)."""
 
-    def __init__(self, cin: int, dim: int, num_down: int = 2, device=None):
+    def __init__(self, cin: int, dim: int, num_down: int = 2,
+                 downsample: bool = True, conv_norm: str = "layernorm",
+                 device=None):
         super().__init__()
-        self.num_down = num_down
+        self.num_down, self.downsample = num_down, downsample
+        if not downsample:
+            for i in range(num_down):
+                self.add_module(f"conv{i}", OctreeConvNormRelu(
+                    cin if i == 0 else dim, dim, conv_norm, device=device))
+            return
         chans = [int(dim * 2**i) for i in range(-num_down, 1)]
         prev = cin
         for i in range(num_down):
             self.add_module(f"conv{i}", OctreeConvNormRelu(
-                prev, chans[i], device=device))
+                prev, chans[i], conv_norm, device=device))
             self.add_module(f"down{i}", OctreeDownConvNormRelu(
-                chans[i], chans[i + 1], device=device))
+                chans[i], chans[i + 1], conv_norm, device=device))
             prev = chans[i + 1]
-        self.proj = OctreeConvNormRelu(prev, dim, device=device)
+        self.proj = OctreeConvNormRelu(prev, dim, conv_norm, device=device)
 
     def forward(self, x, plan: OctreePlan):
-        d = plan.octree.depth
+        oc = plan.octree
+        d = oc.depth
+        if not self.downsample:
+            ctx = plan.level_ctx(d)
+            for i in range(self.num_down):
+                x = getattr(self, f"conv{i}")(x, ctx.neigh, ctx.node_valid,
+                                              ctx.taps)
+            return x
         for i in range(self.num_down):
             ctx = plan.level_ctx(d - i)
-            x = getattr(self, f"conv{i}")(x, ctx.neigh, ctx.taps)
-            x = getattr(self, f"down{i}")(x, plan.down_tables(d - i))
+            x = getattr(self, f"conv{i}")(x, ctx.neigh, ctx.node_valid,
+                                          ctx.taps)
+            x = getattr(self, f"down{i}")(x, plan.down_tables(d - i),
+                                          oc.node_valid(d - i - 1))
         ctx = plan.level_ctx(d - self.num_down)
-        return self.proj(x, ctx.neigh, ctx.taps)
+        return self.proj(x, ctx.neigh, ctx.node_valid, ctx.taps)
+
+
+def _block_kw(cfg: ModelConfig) -> dict:
+    """The config's options every block takes."""
+    return dict(conv_norm=cfg.conv_norm, xcpe=cfg.xcpe,
+                attn_drop=cfg.attn_drop, proj_drop=cfg.proj_drop)
 
 
 class OctFormerStage(nn.Module):
     """num_blocks OctFormer blocks at one depth, dilation 1 / D on even /
-    odd blocks."""
+    odd blocks. With ``cfg.octf_use_rt`` (JAX models/backbone.py:122-150)
+    the blocks are H-OSA blocks over relay tokens of this depth instead
+    (G = ``rt_size`` per window, dilation off), each after a LayerNorm
+    (``rt_ln{i}``) and a token attention (``rt_attn{i}``) over the
+    stage's relay tokens, added back to them."""
 
     def __init__(self, cfg: ModelConfig, dim: int, num_heads: int,
                  drop_paths: Sequence[float], depth: int, device=None):
         super().__init__()
         self.cfg = cfg
         self.num_blocks = len(drop_paths)
+        self.use_rt = cfg.octf_use_rt
         for i, dp in enumerate(drop_paths):
-            self.add_module(f"block{i}", OctFormerBlock(
-                dim, num_heads, cfg.patch_size,
-                1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
-                not cfg.disable_rpe, cfg.layer_scale,
-                drop_path=dp, device=device))
+            if self.use_rt:
+                self.add_module(f"rt_ln{i}", layer_norm(dim, device=device))
+                self.add_module(f"rt_attn{i}", TokenAttention(
+                    dim, num_heads, cfg.attn_drop, cfg.proj_drop,
+                    device=device))
+                block = HOTFormerBlock(
+                    dim, num_heads, cfg.patch_size, cfg.mlp_ratio,
+                    not cfg.disable_rpe, cfg.layer_scale, drop_path=dp,
+                    rt_per_window=cfg.rt_size, device=device,
+                    **_block_kw(cfg))
+            else:
+                block = OctFormerBlock(
+                    dim, num_heads, cfg.patch_size,
+                    1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
+                    not cfg.disable_rpe, cfg.layer_scale, drop_path=dp,
+                    device=device, **_block_kw(cfg))
+            self.add_module(f"block{i}", block)
 
     def forward(self, x, ctx):
+        c = self.cfg
+        if not self.use_rt:
+            for i in range(self.num_blocks):
+                x = run_block(c, getattr(self, f"block{i}"), x, ctx)
+            return x
+        chunk = c.patch_size // c.rt_size
+        rt = ow.masked_window_mean(x, ctx.node_valid, chunk)
+        wvalid = ow.window_valid(ctx.node_valid, chunk)
         for i in range(self.num_blocks):
-            x = run_block(self.cfg, getattr(self, f"block{i}"), x, ctx)
+            h = getattr(self, f"rt_ln{i}")(rt)
+            rt = rt + getattr(self, f"rt_attn{i}")(h, wvalid)
+            x, rt = run_block(c, getattr(self, f"block{i}"), x, rt, ctx)
         return x
 
 
@@ -148,7 +205,8 @@ class HOTFormerIteration(nn.Module):
         max_ch = max(channels)
         self.rtsa = RelayTokenBlock(
             max_ch, num_heads[channels.index(max_ch)], cfg.mlp_ratio,
-            cfg.layer_scale, drop_path, device=device)
+            cfg.layer_scale, drop_path, cfg.attn_drop, cfg.proj_drop,
+            device=device)
         self.levels = len(channels)
         for j in range(self.levels):
             if self.use_proj:
@@ -156,8 +214,8 @@ class HOTFormerIteration(nn.Module):
                     max_ch, channels[j], device=device))
             self.add_module(f"hosa{j}", HOTFormerBlock(
                 channels[j], num_heads[j], cfg.patch_size, cfg.mlp_ratio,
-                not cfg.disable_rpe, cfg.layer_scale,
-                drop_path=drop_path, device=device))
+                not cfg.disable_rpe, cfg.layer_scale, drop_path=drop_path,
+                rt_per_window=cfg.rt_size, device=device, **_block_kw(cfg)))
             if self.use_proj:
                 self.add_module(f"up_proj{j}", linear(
                     channels[j], max_ch, device=device))
@@ -192,7 +250,18 @@ class HOTFormerStage(nn.Module):
     are no projections) or ``rt_init_cpe{j}`` per level with them. The
     CPE'd features feed only the relay tokens. It runs K3 forward and K4
     backward like every CPE, outside activation checkpointing as in the
-    JAX package (not a remat site there)."""
+    JAX package (not a remat site there). Each window holds G =
+    ``rt_size`` relay tokens, one per chunk of K/G nodes.
+
+    ``cfg.rt_propagation`` (JAX backbone.py:335-349): after the loop
+    every level adds its relay tokens, projected (``prop_down_proj{j}``)
+    when the levels' widths differ, repeated over their chunks, masked
+    to valid nodes and scaled by ``rt_gamma_propagate{j}`` when
+    ``rt_propagation_scale`` is set.
+
+    ``cfg.disable_rt`` (JAX backbone.py:252-270): no relay tokens; per
+    iteration i and level j a plain OctFormer block ``hosa_l{j}_b{i}``,
+    dilation on odd iterations."""
 
     def __init__(self, cfg: ModelConfig, channels: Tuple[int, ...],
                  num_heads: Tuple[int, ...], drop_paths: Sequence[float],
@@ -201,17 +270,28 @@ class HOTFormerStage(nn.Module):
         self.cfg = cfg
         self.channels = tuple(channels)
         self.depths = tuple(depth - j for j in range(len(channels)))
+        self.num_blocks = len(drop_paths)
         L = len(channels)
         max_ch = max(channels)
         for j in range(L - 1):
             self.add_module(f"downsample{j}", Downsample(
-                channels[j], channels[j + 1], device=device))
+                channels[j], channels[j + 1], cfg.conv_norm, device=device))
+        if cfg.disable_rt:
+            for i, dp in enumerate(drop_paths):
+                for j in range(L):
+                    self.add_module(f"hosa_l{j}_b{i}", OctFormerBlock(
+                        channels[j], num_heads[j], cfg.patch_size,
+                        1 if i % 2 == 0 else cfg.dilation, cfg.mlp_ratio,
+                        not cfg.disable_rpe, cfg.layer_scale, drop_path=dp,
+                        device=device, **_block_kw(cfg)))
+            return
         self.use_adape = cfg.adape_mode is not None
         if self.use_adape:
             self.rt_adape = ADaPE(ADAPE_STATS[cfg.adape_mode], max_ch,
                                   device=device)
         elif not cfg.use_projections:
-            self.rt_init_cpe = CPE(max_ch, device=device)
+            self.rt_init_cpe = CPE(max_ch, cfg.conv_norm, cfg.xcpe,
+                                   device=device)
         if cfg.use_projections:
             for j in range(L):
                 if self.use_adape:
@@ -219,23 +299,41 @@ class HOTFormerStage(nn.Module):
                         max_ch, channels[j], device=device))
                 else:
                     self.add_module(f"rt_init_cpe{j}", CPE(
-                        channels[j], device=device))
+                        channels[j], cfg.conv_norm, cfg.xcpe, device=device))
                 self.add_module(f"init_up_proj{j}", linear(
                     channels[j], max_ch, device=device))
         self.iters = nn.ModuleList(
             HOTFormerIteration(cfg, self.channels, tuple(num_heads),
                                self.depths, dp, device=device)
             for dp in drop_paths)
+        if cfg.rt_propagation:
+            for j in range(L):
+                if cfg.use_projections:
+                    self.add_module(f"prop_down_proj{j}", linear(
+                        max_ch, channels[j], device=device))
+                if cfg.rt_propagation_scale is not None:
+                    self.register_parameter(f"rt_gamma_propagate{j}", param(
+                        (), "const", cfg.rt_propagation_scale,
+                        device=device))
 
     def forward(self, x, plan: OctreePlan):
-        """Returns ({depth: local features}, rt_comb, rt_mask)."""
+        """Returns ({depth: local features}, rt_comb, rt_mask); the last two
+        are None with ``disable_rt``."""
         c = self.cfg
         chunk = c.patch_size // c.rt_size
+        oc = plan.octree
         ctxs = [plan.level_ctx(d) for d in self.depths]
         locals_ = [x]
         for j in range(len(self.depths) - 1):
             locals_.append(getattr(self, f"downsample{j}")(
-                locals_[j], plan.down_tables(self.depths[j])))
+                locals_[j], plan.down_tables(self.depths[j]),
+                oc.node_valid(self.depths[j + 1])))
+        if c.disable_rt:
+            for i in range(self.num_blocks):
+                for j, ctx in enumerate(ctxs):
+                    locals_[j] = run_block(c, getattr(self, f"hosa_l{j}_b{i}"),
+                                           locals_[j], ctx)
+            return dict(zip(self.depths, locals_)), None, None
         rts = []
         for j, d in enumerate(self.depths):
             src = locals_[j]
@@ -254,12 +352,23 @@ class HOTFormerStage(nn.Module):
             if c.use_projections:
                 rt = getattr(self, f"init_up_proj{j}")(rt)
             rts.append(rt)
+        widths = [r.shape[1] for r in rts]
         rt_comb = torch.cat(rts, dim=1)
         rt_mask = torch.cat([ow.window_valid(ctx.node_valid, chunk)
                              for ctx in ctxs], dim=1)
         for it in self.iters:
             rt_comb, locals_ = run_block(c, it, rt_comb, locals_, ctxs,
                                          rt_mask)
+        if c.rt_propagation:
+            for j, rt_j in enumerate(torch.split(rt_comb, widths, dim=1)):
+                if c.use_projections:
+                    rt_j = getattr(self, f"prop_down_proj{j}")(rt_j)
+                up = rt_j.repeat_interleave(chunk, dim=1)
+                up = torch.where(ctxs[j].node_valid[..., None], up, 0.0)
+                if c.rt_propagation_scale is not None:
+                    up = up * cast(getattr(self, f"rt_gamma_propagate{j}"),
+                                   up)
+                locals_[j] = locals_[j] + up
         return dict(zip(self.depths, locals_)), rt_comb, rt_mask
 
 
@@ -272,7 +381,9 @@ class HOTFormerBase(nn.Module):
         octf_ch, pyr_ch = cfg.stage_channels()
         octf_h, pyr_h = cfg.stage_heads()
         self.patch_embed = PatchEmbed(in_channels, cfg.channels[0],
-                                      cfg.stem_down, device=device)
+                                      cfg.stem_down,
+                                      cfg.downsample_input_embeddings,
+                                      cfg.conv_norm, device=device)
         rates = cfg.drop_path_rates()
         used = 0
         d = cfg.transformer_depth
@@ -283,7 +394,8 @@ class HOTFormerBase(nn.Module):
                 device=device))
             used += nb
             self.add_module(f"octf_down{i}", Downsample(
-                cfg.channels[i], cfg.channels[i + 1], device=device))
+                cfg.channels[i], cfg.channels[i + 1], cfg.conv_norm,
+                device=device))
             d -= 1
         self.hotf_stage = HOTFormerStage(
             cfg, pyr_ch, pyr_h, rates[used:used + cfg.num_blocks[-1]], d,
@@ -295,7 +407,7 @@ class HOTFormerBase(nn.Module):
         d = c.transformer_depth
         for i in range(c.num_octf_levels):
             feat = getattr(self, f"octf_stage{i}")(feat, plan.level_ctx(d))
-            feat = getattr(self, f"octf_down{i}")(feat,
-                                                     plan.down_tables(d))
+            feat = getattr(self, f"octf_down{i}")(
+                feat, plan.down_tables(d), plan.octree.node_valid(d - 1))
             d -= 1
         return self.hotf_stage(feat, plan)

@@ -189,34 +189,25 @@ class ModelConfig:
 ADAPE_STATS = {None: 0, "pos": 3, "var": 6, "cov": 9}
 
 
+POOLINGS = ("PyramidAttnPoolMixer", "AttnPoolMixer", "AttnPoolGeM",
+            "OctGeM", "PyramidOctGeM", "PyramidOctGeMgc")
+CONV_NORMS = ("layernorm", "batchnorm", "powernorm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError naming each option this package does not
-    run yet. None of these is in a shipped configuration
-    (configs/*_model.txt)."""
+    """Raise NotImplementedError naming each option the JAX package
+    refuses too: an unknown pooling head, conv_norm or adape_mode, and a
+    relay-token head with relay tokens disabled."""
     unsupported = []
-    if cfg.input_features != "P":
-        unsupported.append(f"input_features={cfg.input_features!r}")
-    if cfg.pooling != "PyramidAttnPoolMixer":
+    if cfg.pooling not in POOLINGS:
         unsupported.append(f"pooling={cfg.pooling!r}")
-    if cfg.conv_norm != "layernorm":
+    elif cfg.pooling.startswith("AttnPool") and cfg.disable_rt:
+        unsupported.append(f"pooling={cfg.pooling!r} with disable_rt=True "
+                           "(relay-token pooling needs relay tokens)")
+    if cfg.conv_norm not in CONV_NORMS:
         unsupported.append(f"conv_norm={cfg.conv_norm!r}")
-    if cfg.xcpe:
-        unsupported.append("xcpe=True")
-    if cfg.octf_use_rt:
-        unsupported.append("octf_use_rt=True")
-    if cfg.disable_rt:
-        unsupported.append("disable_rt=True")
-    if cfg.rt_propagation:
-        unsupported.append("rt_propagation=True")
-    if cfg.rt_size > 1:
-        unsupported.append(f"rt_size={cfg.rt_size}")
-    if not cfg.downsample_input_embeddings:
-        unsupported.append("downsample_input_embeddings=False")
     if cfg.adape_mode not in ADAPE_STATS:
         unsupported.append(f"adape_mode={cfg.adape_mode!r}")
-    for name in ("proj_drop", "attn_drop"):     # 0.0 in every shipped config
-        if getattr(cfg, name) != 0.0:
-            unsupported.append(f"{name}={getattr(cfg, name)}")
     if unsupported:
         raise NotImplementedError(
             "hotformerloc_torch does not support: " + ", ".join(unsupported))

@@ -29,6 +29,8 @@ class BatchedOctree:
     leaf_mean: (B, cap_leaf, 3) fp32 mean point per leaf (0 for padding).
     leaf_npts: (B, cap_leaf) fp32 raw points per leaf.
     overflow: (B,) int32 nodes dropped because a level exceeded its cap.
+    leaf_normal: (B, cap_leaf, 3) fp32 mean per-point normal per leaf
+      (0 for padding), when the build was given normals, else None.
     """
     depth: int
     min_depth: int
@@ -39,6 +41,7 @@ class BatchedOctree:
     leaf_mean: torch.Tensor
     leaf_npts: torch.Tensor
     overflow: torch.Tensor
+    leaf_normal: Optional[torch.Tensor] = None
 
     def level(self, d: int) -> int:
         assert self.min_depth <= d <= self.depth, f"depth {d} out of range"
@@ -92,10 +95,13 @@ def _unique_sorted(skeys: torch.Tensor, cap: int):
 
 def build_batched_octree(points: torch.Tensor, pmask: torch.Tensor,
                          depth: int, min_depth: int,
-                         caps: Optional[Tuple[int, ...]] = None
+                         caps: Optional[Tuple[int, ...]] = None,
+                         normals: Optional[torch.Tensor] = None
                          ) -> BatchedOctree:
     """Build a BatchedOctree from (B, P, 3) points in [-1, 1] with (B, P)
-    validity, on the points' device."""
+    validity, on the points' device. ``normals``: optional (B, P, 3)
+    per-point normals, averaged per leaf into ``leaf_normal`` (the 'N'
+    input feature)."""
     assert points.ndim == 3 and points.shape[-1] == 3
     B, P, _ = points.shape
     if caps is None:
@@ -125,6 +131,14 @@ def build_batched_octree(points: torch.Tensor, pmask: torch.Tensor,
     pt_sum = pt_sum.reshape(B, cap_leaf + 1, 3)[:, :cap_leaf]
     pt_cnt = pt_cnt.reshape(B, cap_leaf + 1)[:, :cap_leaf]
     leaf_mean = pt_sum / torch.clamp(pt_cnt, min=1.0)[..., None]
+    leaf_normal = None
+    if normals is not None:
+        snrm = torch.gather(normals.to(torch.float32), 1,
+                            order[..., None].expand(B, P, 3))
+        n_sum = torch.zeros(B * (cap_leaf + 1), 3, device=dev)
+        n_sum.index_add_(0, flat, (snrm * w[..., None]).reshape(-1, 3))
+        n_sum = n_sum.reshape(B, cap_leaf + 1, 3)[:, :cap_leaf]
+        leaf_normal = n_sum / torch.clamp(pt_cnt, min=1.0)[..., None]
 
     keys_all = [None] * nlev
     counts_all = [None] * nlev
@@ -148,4 +162,5 @@ def build_batched_octree(points: torch.Tensor, pmask: torch.Tensor,
     return BatchedOctree(depth=depth, min_depth=min_depth, caps=tuple(caps),
                          keys=tuple(keys_all), counts=tuple(counts_all),
                          parents=tuple(parents_all), leaf_mean=leaf_mean,
-                         leaf_npts=pt_cnt, overflow=ovf)
+                         leaf_npts=pt_cnt, overflow=ovf,
+                         leaf_normal=leaf_normal)

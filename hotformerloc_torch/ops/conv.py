@@ -6,7 +6,8 @@ Counterparts of hotformerloc_tpu/ops/conv.py. ``octree_conv`` and
 ops/kernels/octree_conv.py. The down-conv is plain tensor code, as XLA
 computes it in the JAX package; given the inverse tables (``parent``,
 ``octant``) it has the JAX package's scatter-free backward
-(``DownConvFn``: dx is a gather of dy's products, never a scatter).
+(``DownConvFn``: dx is a gather of dy's products, never a scatter);
+the transposed conv ``octree_deconv`` likewise (``DeconvFn``).
 ``octree_dwconv_dense`` is the counterpart of the JAX package's
 dense-grid CPE conv; the model does not call it (every CPE runs
 ``octree_dwconv``, the same function), and chip_smoke.py times its cuDNN
@@ -146,6 +147,82 @@ def octree_down_conv(x: torch.Tensor, children: torch.Tensor,
     if parent is None or octant is None:
         return octree_conv(x, children, w, b)
     return DownConvFn.apply(x, children, parent, octant, w, b)
+
+
+def _deconv_fwd(x, parent, octant, w, b):
+    """out[b, c] = w[octant[b, c]]^T x[b, parent[b, c]] (+ b); 0 before
+    the bias where parent is -1. A gather of P = x . w (B, N_parent * 8,
+    O), fp32 products, at parent * 8 + octant."""
+    B, Np, C = x.shape
+    K, _, O = w.shape
+    prod = (x.reshape(B * Np, C).float()
+            @ w.float().permute(1, 0, 2).reshape(C, K * O))
+    rows = torch.where(parent >= 0, parent * K + octant,
+                       torch.full_like(parent, -1))
+    out = _gather_rows(prod.reshape(B, Np * K, O), rows).to(x.dtype)
+    return out if b is None else out + b.to(x.dtype)
+
+
+class DeconvFn(torch.autograd.Function):
+    """The stride-2 transposed conv with hotformerloc_tpu/ops/conv.py's
+    custom VJP (``_deconv_core_bwd``), scatter-free both ways:
+
+        dx = the down-conv of dy over ``children`` with w's C and O
+             swapped (x's dtype);
+        dw[k] = sum_{b,p} x[b, p] (x) dy[b, children[b, p, k]] in fp32
+             (children[b, p, k] = c exactly when parent[b, c] = p and
+             octant[b, c] = k), in w's dtype;
+        db = sum dy in fp32, in b's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, parent, octant, children, w, b):
+        ctx.save_for_backward(x, children, w)
+        ctx.b_dtype = None if b is None else b.dtype
+        return _deconv_fwd(x, parent, octant, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, children, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        B, Np, C = x.shape
+        K, _, O = w.shape
+        dx = dw = db = None
+        if need[0]:
+            dx = octree_conv(dy, children, w.transpose(1, 2)).to(x.dtype)
+        if need[4]:
+            xf = x.reshape(B * Np, C).float()
+            dw = torch.empty((K, C, O), dtype=torch.float32,
+                             device=x.device)
+            for k in range(K):
+                gk = _gather_rows(dy, children[..., k]).reshape(B * Np, O)
+                torch.mm(xf.t(), gk.float(), out=dw[k])
+            dw = dw.to(w.dtype)
+        if need[5]:
+            db = dy.float().sum((0, 1)).to(ctx.b_dtype)
+        return dx, None, None, None, dw, db
+
+
+def octree_deconv(x: torch.Tensor, parent: torch.Tensor,
+                  octant: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None,
+                  children: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel-2 stride-2 transposed conv (upsample), the adjoint of
+    ``octree_down_conv``: x (B, N_parent, C), parent and octant (B,
+    N_child) (parent -1 = padding), w (8, C, O). ``children`` (B,
+    N_parent, 8) gives the scatter-free backward (``DeconvFn``); without
+    it autograd differentiates the gather. Plain tensor code, as XLA
+    computes it in the JAX package."""
+    assert w.shape[0] == 8
+    if children is None:
+        return _deconv_fwd(x, parent, octant, w, b)
+    return DeconvFn.apply(x, parent, octant, children, w, b)
+
+
+def global_pool(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Masked mean over nodes: x (B, N, C), valid (B, N) -> (B, C)."""
+    vf = valid.to(x.dtype)
+    s = torch.einsum("bnc,bn->bc", x, vf)
+    return s / torch.clamp(vf.sum(1), min=1.0)[:, None]
 
 
 # -- dense-grid depthwise conv (the JAX package's coarse-depth CPE) --------

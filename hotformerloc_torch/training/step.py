@@ -13,10 +13,21 @@ trains on a batch of B clouds as accum_steps microbatches:
    ``emb.backward(g_emb)``, accumulating the fp32 parameter gradients;
 5. the optimizer update, the optional EMA, and the gradient norm.
 
-The DropPath masks of microbatch i are drawn from a generator seeded
-from (seed, i), so stages 1 and 3 see the same masks and the recomputed
-embeddings equal the first ones. The compute dtype is the model's
-(``HOTFormerLoc(dtype=...)``); parameters and gradients stay fp32.
+The DropPath masks and the dropout seed of microbatch i are drawn from a
+generator seeded from (seed, i), so stages 1 and 3 see the same masks and
+the recomputed embeddings equal the first ones. The compute dtype is the
+model's (``HOTFormerLoc(dtype=...)``); parameters and gradients stay
+fp32.
+
+Running statistics (BatchNorm / PowerNorm buffers) change as the JAX
+step's ``model_state`` does: every forward of a step runs from the
+state the step started with; the single-pass step keeps its forward's
+update, and the multistage step keeps stage 1's last microbatch's (its
+scan's carry), dropping the other microbatches' and stage 3's. The EMA
+teacher (MESA) runs in eval mode on the student's running statistics,
+as JAX's teacher reads ``state.model_state``. A batch may carry
+'normals' (B, P, 3) for the 'N' input feature (the JAX step has no such
+key).
 
 Over a process group of n ranks (``parallel/dist.py``) each rank holds
 rows r·b .. (r+1)·b of the global batch of B = n·b clouds and the same
@@ -27,7 +38,10 @@ each rank computes the same global loss and its gradient; stage 3
 backpropagates the rank's own rows of it; the parameter gradients are
 summed over the ranks once, after the last microbatch. The step then
 equals one process's step over the global batch with n·accum_steps
-microbatches, up to the order of the fp32 sums.
+microbatches, up to the order of the fp32 sums. Models with running
+statistics are refused there: JAX's batch statistics are global over
+the sharded microbatch, and the ranks here would each compute their
+own.
 """
 from __future__ import annotations
 
@@ -143,21 +157,35 @@ class TrainStep:
         self.model, self.optimizer, self.loss_fn, self.cfg = (
             model, optimizer, loss_fn, cfg)
         self.group = group
+        if dist.world(group) > 1 and model.stats_modules():
+            raise NotImplementedError(
+                f"conv_norm={model.cfg.conv_norm!r} / pooling="
+                f"{model.cfg.pooling!r} over {dist.world(group)} ranks: "
+                "the batch statistics are not all-reduced yet")
         self.params = [p for p in model.parameters() if p.requires_grad]
         ema = None          # MESA needs the EMA teacher, as in JAX
         if cfg.use_ema:
             ema = copy.deepcopy(model).eval().requires_grad_(False)
         self.state = TrainState(step=0, ema_model=ema)
 
-    def _teacher(self, points, pmask, plan=None):
+    def _teacher(self, points, pmask, plan=None, normals=None):
         ema = self.state.ema_model
         if self.cfg.mesa <= 0.0 or ema is None:
             return None
         with torch.no_grad():
-            return ema(points, pmask, plan=plan)["global"]
+            for e, b in zip(ema.buffers(), self.model.buffers()):
+                e.copy_(b)          # the student's running statistics
+            return ema(points, pmask, plan=plan, normals=normals)["global"]
+
+    def _draws(self, batch: int, micro: int):
+        """Microbatch ``micro``'s DropPath masks and dropout seed."""
+        g = drop_generator(self.seed, micro)
+        masks = self.model.draw_drop_masks(batch, g)
+        return masks, int(torch.randint(2 ** 62, (), generator=g))
 
     def __call__(self, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         self.model.train()
+        self.seed = seed
         self.optimizer.zero_grad(set_to_none=True)
         if self.cfg.accum_steps <= 1:
             stats = self._single_pass(batch, seed)
@@ -172,28 +200,29 @@ class TrainStep:
 
     def _single_pass(self, batch: Batch, seed: int):
         m, g = self.model, self.group
-        pts, msk = batch["points"], batch["pmask"]
+        pts, msk, nrm = batch["points"], batch["pmask"], batch.get("normals")
         b, r = pts.shape[0], dist.rank(g)
-        masks = m.draw_drop_masks(b, drop_generator(seed, r))
-        out = m(pts, msk, drop_masks=masks)
+        masks, dseed = self._draws(b, r)
+        out = m(pts, msk, drop_masks=masks, normals=nrm, dropout_seed=dseed)
         emb = out["global"]
         if g is not None:
             # the other ranks' rows detached, this rank's with their graph
             every = dist.all_gather_rows(emb.detach(), g)
             emb = torch.cat([every[:r * b], emb, every[(r + 1) * b:]])
         loss, stats = self.loss_fn(emb, *self._gather_masks(batch))
-        t_emb = self._teacher(pts, msk)
+        t_emb = self._teacher(pts, msk, normals=nrm)
         if t_emb is not None:
             loss = loss + self.cfg.mesa * kd_loss(
                 emb, dist.all_gather_rows(t_emb, g))
         loss.backward()
+        m.commit_stats()
         stats = dict(stats, octree_overflow=out["octree_overflow"],
                      band_overflow=out["band_overflow"])
         return stats
 
     def _multistage(self, batch: Batch, seed: int):
         m, A, g = self.model, self.cfg.accum_steps, self.group
-        pts, msk = batch["points"], batch["pmask"]
+        pts, msk, nrm = batch["points"], batch["pmask"], batch.get("normals")
         b, r = pts.shape[0], dist.rank(g)
         if b % A:
             raise ValueError(f"batch {b} is not a multiple of "
@@ -201,21 +230,23 @@ class TrainStep:
         mb = b // A
         chunks = [slice(i * mb, (i + 1) * mb) for i in range(A)]
         with torch.no_grad():
-            plans = [build_model_plan(m.cfg, pts[sl], msk[sl])
-                     for sl in chunks]
-        masks = [m.draw_drop_masks(mb, drop_generator(seed, r * A + i))
-                 for i in range(A)]
+            plans = [build_model_plan(
+                m.cfg, pts[sl], msk[sl],
+                normals=None if nrm is None else nrm[sl]) for sl in chunks]
+        draws = [self._draws(mb, r * A + i) for i in range(A)]
 
         # Stage 1: embeddings without parameter gradients.
         embs, t_embs, ovf = [], [], []
         with torch.no_grad():
             for i, sl in enumerate(chunks):
-                out = m(pts[sl], msk[sl], plan=plans[i], drop_masks=masks[i])
+                out = m(pts[sl], msk[sl], plan=plans[i],
+                        drop_masks=draws[i][0], dropout_seed=draws[i][1])
                 embs.append(out["global"])
                 ovf.append(out["octree_overflow"])
                 t = self._teacher(pts[sl], msk[sl], plans[i])
                 if t is not None:
                     t_embs.append(t)
+        staged = m.staged_stats()      # the last microbatch's update
         emb = dist.all_gather_rows(torch.cat(embs), g).detach() \
             .requires_grad_(True)
 
@@ -233,10 +264,12 @@ class TrainStep:
         # Stage 3: recompute per microbatch, chain rule into the params.
         diff = []
         for i, sl in enumerate(chunks):
-            out = m(pts[sl], msk[sl], plan=plans[i], drop_masks=masks[i])
+            out = m(pts[sl], msk[sl], plan=plans[i], drop_masks=draws[i][0],
+                    dropout_seed=draws[i][1])
             out["global"].backward(g_emb[sl])
             if self.cfg.check_recompute:
                 diff.append((out["global"].detach() - embs[i]).abs().max())
+        m.commit_stats(staged)
         if diff:
             stats["recompute_max_abs"] = torch.stack(diff).max()
         return stats
@@ -283,7 +316,8 @@ def make_eval_step(model: HOTFormerLoc, loss_fn: Callable, group=None):
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
         with torch.no_grad():
-            out = model(batch["points"], batch["pmask"])
+            out = model(batch["points"], batch["pmask"],
+                        normals=batch.get("normals"))
             _, stats = loss_fn(
                 dist.all_gather_rows(out["global"], group),
                 dist.all_gather_rows(batch["positives_mask"], group),

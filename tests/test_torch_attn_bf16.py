@@ -18,6 +18,8 @@ tensor-core body for bf16 with a head width that is a multiple of 16 up
 to 64, T <= 80 and the tiles within shared memory, the CUDA-core body
 otherwise; q, k, v may be strided slices of one projection.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

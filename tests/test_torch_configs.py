@@ -20,6 +20,8 @@ package, on the CPU:
   the CS-Wild-Places and Wild-Places dataset settings and file layout
   (synthetic .pcd data).
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import dataclasses
 import json
 import os

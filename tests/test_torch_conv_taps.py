@@ -17,6 +17,8 @@
 The kernels themselves run only on the card, where chip_smoke.py holds
 each against its plain version.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,8 @@
   of the run's log gives it again; a second run into the same log is
   summarised alone.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import math
 import os
 import pickle

@@ -22,6 +22,8 @@ backward).
   these inputs the two agree to 0.99997, closer than either comes to
   the fp32 descriptors, 0.9999).
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import types
 
 import jax

@@ -18,6 +18,8 @@ code on the same seeded generators.
 * a fresh interpreter that imports every module of the port and loads
   that pickle has no jax, flax, optax, orbax or hotformerloc_tpu module.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import hashlib
 import os
 import pickle

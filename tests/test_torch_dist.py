@@ -27,6 +27,8 @@ tests/test_multihost.py), every run with a timeout.
 6. tools/scaling_harness at 1 and 2 ranks;
 7. without a group every helper is the identity; a failing rank raises.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import json
 import os
 import pickle

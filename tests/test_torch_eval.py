@@ -11,6 +11,8 @@
 * pnv_evaluate's main on a saved state_dict equals evaluate() on the
   model it came from.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import dataclasses
 import os
 import pickle

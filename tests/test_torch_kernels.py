@@ -18,6 +18,8 @@ The kernels themselves run only on the card: chip_smoke.py holds each
 against its plain version there. Here the wrappers must refuse any
 device that is neither CPU nor CUDA, and a missing nvcc must raise.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

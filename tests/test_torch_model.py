@@ -6,11 +6,13 @@
   kernel routing on and off: cosine >= 0.9999 and max abs <= 1e-4 (the
   bar of tests/test_reference_parity.py).
 * the converter uses every JAX leaf once and sets every parameter;
-* options outside the slice raise NotImplementedError;
+* options the JAX package refuses too raise NotImplementedError;
 * retrieval_topk equals the JAX function;
 * no file of the port, nor chip_smoke.py, imports jax, flax or
   hotformerloc_tpu.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import ast
 import pathlib
 
@@ -137,12 +139,15 @@ def test_own_init_is_seeded_and_device_independent():
     assert abs(float(w.detach().std()) * np.sqrt(fan_in) - 1.0) < 0.2
 
 
+# What the JAX package refuses too: unknown heads, norms and ADaPE
+# modes, and the relay-token heads without relay tokens. Every option
+# of tests/test_model.py's ablations runs (tests/test_torch_ablations.py).
 @pytest.mark.parametrize("option", [
-    dict(input_features="PN"), dict(pooling="OctGeM"),
-    dict(conv_norm="batchnorm"), dict(conv_norm="powernorm"),
-    dict(xcpe=True), dict(octf_use_rt=True), dict(disable_rt=True),
-    dict(rt_propagation=True), dict(rt_size=2),
-    dict(downsample_input_embeddings=False)])
+    dict(pooling="NetVLAD"), dict(pooling="GeM"),
+    dict(pooling="PyramidAttnPoolGeM"), dict(conv_norm="groupnorm"),
+    dict(conv_norm="instancenorm"), dict(adape_mode="mean"),
+    dict(adape_mode="cov2"), dict(pooling="AttnPoolMixer", disable_rt=True),
+    dict(pooling="AttnPoolGeM", disable_rt=True), dict(pooling="MinkLoc")])
 def test_unsupported_options_raise(option):
     name = next(iter(option))
     with pytest.raises(NotImplementedError, match=name):

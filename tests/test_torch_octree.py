@@ -2,6 +2,8 @@
 octree keys/counts/parents/overflow, every 27-tap neighbour table, child
 tables and dense voxel maps are exactly equal; leaf means within 1e-6.
 Inputs are numpy arrays from a seed, handed to both packages (CPU)."""
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

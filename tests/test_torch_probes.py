@@ -25,6 +25,8 @@ held against the JAX package:
 The kernels themselves run only on the card (chip_smoke.py's probes
 phase holds each against its plain version there).
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import hashlib
 import json
 from pathlib import Path

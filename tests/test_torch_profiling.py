@@ -2,6 +2,8 @@
 no device event: it profiles the window three times in all, counts the
 two windows it took again in ``RETAKEN_WINDOWS`` (chip_smoke.py allows
 for their extra kernel launches by that count), and then raises."""
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import pytest
 import torch
 

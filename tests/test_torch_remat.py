@@ -13,6 +13,8 @@ and the activation-checkpoint policies of hotformerloc_torch.
   runs again counted: every site under None, K3's only under
   'save_attn', none under 'save_hot'. An unknown policy raises.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import dataclasses
 
 import jax

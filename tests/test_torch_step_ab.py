@@ -1,5 +1,7 @@
 """tools/step_ab on the CPU: two workers (here both this checkout) at
 the tiny config, answering alternating timed steps."""
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import json
 import os
 import subprocess

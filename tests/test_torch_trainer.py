@@ -20,6 +20,8 @@ checkpointing, qkv initialisers and preemption path, on the CPU.
 
 The JAX trainer itself is not run: its CPU compile takes minutes.
 """
+import torch_threads  # noqa: F401  (first: one torch thread per worker)
+
 import dataclasses
 import json
 import math
@@ -450,3 +452,38 @@ def test_preemption_requeue(tiny_env, tmp_path):
     assert elastic.run_elastic(cmd, max_requeues=2, ckpt_path="x") == 0
     assert elastic.run_elastic(cmd, max_requeues=0, ckpt_path="x") == \
         elastic.REQUEUE_EXIT_CODE
+
+
+def test_cli_runs_the_parsers_default_norm_and_head(tiny_env, tmp_path):
+    """A model config without conv_norm and pooling gets the parsers'
+    defaults, batchnorm and OctGeM (the reference's ModelParams), and
+    runs through the train and evaluate CLIs; the checkpoint carries the
+    running statistics the steps moved."""
+    from hotformerloc_torch.evaluation import pnv_evaluate
+    from hotformerloc_torch.training import train as train_cli
+    train_cfg, model_cfg = tiny_env
+    text = "".join(ln for ln in open(model_cfg).read().splitlines(True)
+                   if not ln.startswith(("conv_norm", "pooling")))
+    model_cfg = tmp_path / "model.txt"
+    model_cfg.write_text(text)
+    common = ["--config", train_cfg, "--model_config", str(model_cfg),
+              "--num_points", str(P), "--device", "cpu"]
+    trainer = train_cli.main(common + ["--weights_dir", str(tmp_path / "w"),
+                                       "--model_name", "t"])
+    cfg = trainer.model.cfg
+    assert (cfg.conv_norm, cfg.pooling) == ("batchnorm", "OctGeM")
+    log = _log(trainer)
+    assert all(np.isfinite(r["loss"]) for r in log if r["phase"] == "train")
+    final = trainer.ckpt_path("final")
+    trainer.close()
+    state = torch.load(final, map_location="cpu", weights_only=False)
+    state = state.get("model", state)
+    means = [v for k, v in state.items() if k.endswith("norm.mean")]
+    assert means and all(bool(v.abs().sum() > 0) for v in means)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)                 # the evaluator writes its results
+    try:
+        stats = pnv_evaluate.main(common + ["--weights", final])
+    finally:
+        os.chdir(cwd)
+    assert np.isfinite(float(stats["average"]["ave_recall"][0]))
