@@ -45,6 +45,15 @@ script exits non-zero without the final line:
    the same card (cos >= 0.9999, max abs <= 1e-4). Retrieval recall@1 of
    the noisy copies against the originals is printed for information
    (the weights are random), with bf16 ms/batch and submaps/s.
+4b. weights: reference weights in (``weights_phase``): a state dict
+   with the reference's names and shapes for configs/oxford_model.txt
+   (the converter's synthesize_reference_state_dict) saved as a .pth,
+   converted by tools/convert_reference_weights' CLI, loaded through
+   pnv_evaluate's load_model_embed_fn on the card and the 32 clouds
+   embedded in bf16: K1, K3 and K5 launched, the bf16 descriptors
+   within cos >= 0.999 of the plain path's fp32 ones; the same file's
+   weights' fp32 kernel descriptors against the plain path at the
+   slice's bar; bf16 ms per batch.
 5. backward kernels: K2 window attention, K4 depthwise and K6 full
    octree conv backward at every shape of the train path (microbatch 8
    of the same clouds, the package's own octree build): kernel vs its
@@ -112,26 +121,41 @@ script exits non-zero without the final line:
    4 variants), cut to CONV_EPOCHS epochs, evaluated at the last: finite
    losses, the last epoch's below the first's, every model kernel
    launched; prints the trajectory and epoch seconds.
-6c. dp: data parallelism (parallel/dist.py) at Oxford width, bf16 on
-   fp32 parameters, no activation checkpointing, through
-   tools/multihost_smoke on a synthetic PNV dataset of 64 clouds.
-   (a) The DP step at world 1 over NCCL (batch 32 as 4 microbatches of
-   8) against the step without a process group on the same batch and
-   weights: loss within rtol 1e-5, gradients within GRAD_TOL; the same
-   step run again without a group gives the card's run-to-run spread
-   (printed, not checked). (b) Two ranks as two processes on this card
-   over gloo (NCCL refuses two ranks on one device; the CUDA tensors go
-   through the host), 16 rows as 2 microbatches of 8 each, against (a)'s
-   step without a group: loss rtol 1e-5, gradients within GRAD_TOL, and
-   both ranks' parameters bitwise equal after the step. (c)
-   retrieval_topk of 1000 queries over a 20000 x 256 database sharded
-   over two such ranks against one card: indices exact (random normal
-   rows have no distance ties), distances within 1e-5 of one card's and
-   of the distances recomputed on the host from the returned indices,
-   the ranks' results equal. Every
-   model kernel must launch in (a)'s DP step and on each rank of (b)
-   (counters zeroed just before each step, read just after). The line
-   gives each part's seconds, step seconds and peak memory per rank.
+6c. dp: data parallelism (parallel/dist.py) at Oxford width, fp32
+   parameters, no activation checkpointing, DropPath 0, through
+   tools/multihost_smoke on a synthetic PNV dataset of 64 clouds, batch
+   32 as 4 global microbatches of 8, for three models (DP_VARIANTS):
+   layernorm (the configs'), conv_norm batchnorm with the
+   PyramidOctGeMgc head's BatchNorm in flax's form (the shipped one),
+   and powernorm. (a) The DP step at world 1 over NCCL against the step
+   without a process group on the same batch and weights, in bf16 and at
+   fp32: loss within rtol 1e-5, gradients within GRAD_TOL (at bf16 but
+   for the parameters that only shift a MaskedBatchNorm's input, whose
+   gradient, 0 in exact arithmetic, is bf16 rounding; at fp32 those
+   within ZERO_GRAD_TOL of the gradient's norm), running statistics
+   within 1e-6 (absolute and relative) and PowerNorm's count equal; the
+   bf16 step run again without a group gives the card's run-to-run
+   spread (printed). (b) Two ranks as two processes on this card over
+   gloo (NCCL refuses two ranks on one device; the CUDA tensors go
+   through the host), 16 rows each (4 of each global microbatch, the
+   JAX step's layout). layernorm's run in bf16, on the tensor-core
+   bodies (their launches checked), against one process of 8
+   microbatches of 4 rows, the ranks' own GEMM shapes, at GRAD_TOL; its
+   distance from one process of 4 microbatches of 8 rows is printed
+   (other shapes: a bf16 GEMM of 8 rows rounds otherwise than one of 4).
+   The models with statistics run fp32 against one process with the
+   same accum_steps, at GRAD_TOL times max(1, 2 x the model's own
+   rounding spread: its one-process step with the rows of each
+   microbatch reversed, and rolled by half, which is equal in exact
+   arithmetic), statistics as (a). Every run: both ranks' parameters
+   bitwise equal after the step, loss within rtol 1e-5, every model
+   kernel launched (counters zeroed just before each step, read just
+   after). (c) retrieval_topk of 1000 queries over a 20000 x 256
+   database sharded over two such ranks against one card: indices exact
+   (random normal rows have no distance ties), distances within 1e-5 of
+   one card's and of the distances recomputed on the host from the
+   returned indices, the ranks' results equal. The lines give each
+   part's seconds, step seconds and peak memory per rank.
 6d. configs: the patch-64 and no-ADaPE configurations at full width.
    (a) cs_wild_places_config (depth-7 octree, patch 64: OctFormer windows
    of T = 64, H-OSA windows of 64 nodes + a relay slot, T = 65): K1 at
@@ -175,7 +199,11 @@ script exits non-zero without the final line:
    stage 1, the running statistics equal between the paths, equal to
    stage 1's last microbatch applied once, and (A) under checkpointing;
    B's bf16 step, with attention dropout, launches no K1/K2 (the einsum
-   route, as JAX's).
+   route, as JAX's). For A (xCPE) also ``xcpe_remat_check``: one fp32
+   step of 2 x 8 without checkpointing and under 'save_hot' and None:
+   'save_hot' keeps the xCPE conv's output, so the backward runs K5 no
+   extra time; None runs it once more per xCPE site and microbatch; loss
+   and gradients as without checkpointing.
 7. probes: the probe tools end to end on the card, the slice's main
    path: gather_bench (T1 take_rows and T2 dwconv_resident at (8, 4224,
    256) on real tables, on both cluster sizes, with K3 on the same
@@ -207,14 +235,23 @@ script exits non-zero without the final line:
    calls of scatter_add, index_add and gather's backward; the down-convs
    differentiate no gather (their backward reads the inverse tables), so
    the step may hold one gather_backward (the loss's top-k) and no more.
+8c. tools, in a process of their own (``chip_smoke.py --tools-worker``:
+   torch.profiler returns windows without device events after this
+   process's many earlier ones): bisect_step's six stages at Oxford
+   shapes (wall, CUDA-event and profiler device time per stage, so the
+   host's share of each),
+   plan_probe's table kinds and component_profile's band, cpe, rtsa and
+   pool experiments (band holds K3/K4/K5 against the plain path); every
+   stage must show device time, and K1-K6 must launch in the run.
 9. the kernels line {"kernels": [...]} (the six model kernels, forward
    rows per forward of batch 32 and backward rows per train step of
    batch 32, K1/K2 and K5/K6 with their tensor-core launches and the
    CUDA-core bodies' time on the same inputs, K2's time without the table
    gradient, K4/K5/K6's device time, valid taps per node and surface-like
    rows, each kernel's launches in the entry phase's train run as
-   launches_entry, and in the dp phase's steps as launches_dp (a) and
-   launches_dp_two_ranks (b); then the twelve probe
+   launches_entry, and in the dp phase's steps per model as launches_dp
+   ((a)'s bf16 step) and launches_dp_two_ranks ((b)'s ranks) and
+   in the tools phase as launches_tools; then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
    tools; T2's row adds its cluster plan (blocks per cluster, channel
    slice, rows per block, clusters per sample = neighbour-table reads
@@ -1899,37 +1936,272 @@ def entry_phase(torch, dev, smi, pts, pmask):
     return launches, out
 
 
-DP_BATCH = 32                # dp phase: global batch, microbatches of 8
+DP_BATCH = 32                # dp phase: global batch as DP_ACCUM microbatches
+DP_ACCUM = 4
 DP_DB = 20_000               # (c): database rows, not a multiple of 2
 DP_QUERIES = 1000
+# the dp phase's models (multihost_smoke overrides), each with the data
+# type of its two-rank run and the accum_steps of the one process that
+# run is held against. All run at DropPath 0, so that each pair compared
+# is the same step in exact arithmetic. Without batch statistics a row's
+# gradient does not depend on the rows beside it: the layernorm ranks
+# run bf16 against one process of 2 x DP_ACCUM microbatches of 4 rows,
+# the ranks' own GEMM shapes (at bf16 a GEMM of 8 rows rounds otherwise
+# than one of 4). With statistics a rank's rows are normalised together
+# with the other rank's, so only one process with the same accum_steps,
+# of other shapes, runs their step: those ranks run fp32.
+DP_VARIANTS = {
+    "layernorm": (["--drop_path", "0"], "bfloat16", 2 * DP_ACCUM),
+    "batchnorm": (["--conv_norm", "batchnorm", "--pooling",
+                   "PyramidOctGeMgc", "--drop_path", "0"], "float32",
+                  DP_ACCUM),
+    "powernorm": (["--conv_norm", "powernorm", "--drop_path", "0"],
+                  "float32", DP_ACCUM),
+}
+# the row orders (multihost_smoke --reorder) whose fp32 steps give a
+# model's own rounding spread; an fp32 two-rank run is held at GRAD_TOL
+# times max(1, SPREAD_FACTOR x the larger spread): the ranks' step is one
+# more rounding of the same sums, and two roundings each within s of the
+# exact step lie within 2 s of each other. PowerNorm's stem breaks
+# GRAD_TOL under a row order alone: 1.94 (reversed) and 4.17 (rolled)
+# times it, the two ranks 4.17 on the same three tensors (H100 80GB
+# HBM3, 700 W)
+DP_REORDERS = ("reverse", "roll")
+SPREAD_FACTOR = 2.0
+TC_KERNELS = ("window_attn_tc", "window_attn_bwd_tc", "octree_conv_tc",
+              "octree_conv_bwd_tc")
 
 
-def _missing(launches):
-    """The model kernels a run's launch counts show no launch of."""
-    return [k for k in MODEL_KERNELS if launches[k] == 0]
+def _missing(launches, kernels=MODEL_KERNELS):
+    """The kernels a run's launch counts show no launch of."""
+    return [k for k in kernels if launches[k] == 0]
 
 
-def _grad_worst(got, want):
-    """Largest |got - want| / (a |want| + b) over the tensors, GRAD_TOL's
-    a and b, and whether every tensor of ``got`` is finite."""
+def _grad_ratios(got, want, zero=()):
+    """Per tensor, |got - want| / (a |want| + b) with GRAD_TOL's a and b;
+    for the parameters ``zero`` (``bn_shift_params``: gradient 0 in
+    exact arithmetic) max(|got|, |want|) / (ZERO_GRAD_TOL times the whole
+    gradient's norm) instead."""
     import torch
-    worst = max(float((got[n] - w).norm())
-                / (GRAD_TOL[0] * float(w.norm()) + GRAD_TOL[1])
-                for n, w in want.items())
-    return worst, all(bool(torch.isfinite(g).all()) for g in got.values())
+    total = float(torch.sqrt(sum((w.double() ** 2).sum()
+                                 for w in want.values())))
+    return {n: (max(float(got[n].norm()), float(w.norm()))
+                / (ZERO_GRAD_TOL * total) if n in zero
+                else float((got[n] - w).norm())
+                / (GRAD_TOL[0] * float(w.norm()) + GRAD_TOL[1]))
+            for n, w in want.items()}
+
+
+def _grad_worst(got, want, zero=()):
+    """(largest ``_grad_ratios``, whether every tensor of ``got`` is
+    finite, the 3 tensors of largest ratio with their |want|)."""
+    import torch
+    r = _grad_ratios(got, want, zero)
+    top = sorted(r, key=r.get, reverse=True)[:3]
+    return (max(r.values()),
+            all(bool(torch.isfinite(g).all()) for g in got.values()),
+            [(n, r[n], float(want[n].norm())) for n in top])
+
+
+def _stats_worst(got, want):
+    """Largest |got - want| / (1e-6 + 1e-6 |want|) over the float buffers
+    (the running statistics: "within 1e-6" as tests/test_torch_norms.py
+    holds them), and whether the integer ones (PowerNorm's iters) are
+    equal."""
+    import torch
+    worst, ints = 0.0, True
+    for k, w in want.items():
+        if w.is_floating_point():
+            worst = max(worst, float(((got[k] - w).abs()
+                                      / (1e-6 + 1e-6 * w.abs())).max()))
+        else:
+            ints = ints and torch.equal(got[k], w)
+    return worst, ints
+
+
+def _world1_run(torch, mh, args):
+    """multihost_smoke's step in a process group of one rank over NCCL
+    (RANK etc. set for the call only). Returns (result, tensors)."""
+    from hotformerloc_torch.parallel import dist
+    world1 = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                  MASTER_ADDR="localhost", MASTER_PORT=str(dist.free_port()))
+    os.environ.update(world1)
+    try:
+        group, dev = dist.init_from_env("cuda")
+        try:
+            if torch.distributed.get_backend(group) != "nccl":
+                raise AssertionError("world-1 group is not NCCL")
+            return mh.run(args, group, dev)
+        finally:
+            dist.close(group)
+    finally:
+        for k in world1:
+            os.environ.pop(k)
+        torch.cuda.empty_cache()
+
+
+def dp_variant(torch, name, common, work, env):
+    """One DP_VARIANTS model at Oxford width through the dp phase's (a)
+    and (b) (``dp_phase``). Returns its numbers, (a)'s bf16 launches and
+    (b)'s ranks' launches."""
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.parallel import dist
+    from hotformerloc_torch.tools import multihost_smoke as mh
+
+    over, rank_dtype, ref_accum = DP_VARIANTS[name]
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+
+    def argv(dtype, accum=DP_ACCUM, *extra):
+        return [*common, *over, "--dtype", dtype, "--accum", str(accum),
+                *extra]
+
+    def one(a, group=False):
+        """(result, tensors) of the step without a group, or (group)
+        at world 1 over NCCL."""
+        args = mh.parse_args(a + ["--out", work])
+        if group:
+            return _world1_run(torch, mh, args)
+        res = mh.run(args, None, dev)
+        torch.cuda.empty_cache()
+        return res
+
+    cfg = mh.config_of(mh.parse_args(argv("float32") + ["--out", work]))
+    m = HOTFormerLoc(cfg, device="cuda")
+    zero = bn_shift_params(m)
+    del m
+    line = {"conv_norm": cfg.conv_norm, "pooling": cfg.pooling,
+            "attn_drop": cfg.attn_drop, "drop_path": cfg.drop_path,
+            "zero_grad_params": len(zero)}
+
+    # (a) world 1 over NCCL against the step without a group; bf16 (the
+    # launches; the repeat gives the card's run-to-run spread), then fp32
+    res16, ten16 = one(argv("bfloat16"), group=True)
+    one16, t_one16 = one(argv("bfloat16"))
+    rep16, t_rep16 = one(argv("bfloat16"))
+
+    # at bf16 a gradient 0 in exact arithmetic is bf16 rounding, far
+    # above ZERO_GRAD_TOL: the BN-shift parameters are left out here
+    def keep(t):
+        return {n: g for n, g in t["grads"].items() if n not in zero}
+    w16, fin16, top16 = _grad_worst(keep(ten16), keep(t_one16))
+    a16 = {"loss": res16["loss"], "loss_no_group": one16["loss"],
+           "loss_repeat": rep16["loss"], "grad_worst_ratio_to_limit": w16,
+           "worst_tensors": top16,
+           "repeat_grad_worst_ratio_to_limit": _grad_worst(
+               keep(t_rep16), keep(t_one16))[0],
+           "step_s": res16["step_s"], "step_s_no_group": one16["step_s"],
+           "peak_mem_gb": res16["peak_mem_gb"],
+           "peak_mem_gb_no_group": one16["peak_mem_gb"],
+           "octree_overflow": res16["octree_overflow"],
+           "launches": res16["launches"]}
+    del ten16, t_rep16
+    res32, ten32 = one(argv("float32"), group=True)
+    one32, t_one32 = one(argv("float32"))
+    w32, fin32, top32 = _grad_worst(ten32["grads"], t_one32["grads"], zero)
+    s32, ints32 = _stats_worst(ten32["buffers"], t_one32["buffers"])
+    a32 = {"loss": res32["loss"], "loss_no_group": one32["loss"],
+           "grad_worst_ratio_to_limit": w32, "worst_tensors": top32,
+           "stats_worst_ratio_to_limit": s32, "launches": res32["launches"]}
+    del ten32
+    line.update(a_nccl_world1_bf16=a16, a_nccl_world1=a32)
+
+    # (b) two gloo ranks on this card, against one process with the same
+    # rows per GEMM (layernorm) or the same accum_steps
+    same = {"bfloat16": (one16, t_one16), "float32": (one32, t_one32)}
+    ref, t_ref = (same[rank_dtype] if ref_accum == DP_ACCUM
+                  else one(argv(rank_dtype, ref_accum)))
+    bar, spreads = 1.0, {}
+    if ref_accum == DP_ACCUM:
+        # the model's own rounding spread: its step with the rows of each
+        # microbatch in another order, equal in exact arithmetic
+        for how in DP_REORDERS:
+            t = one(argv(rank_dtype, DP_ACCUM, "--reorder", how))[1]
+            s, _, s_top = _grad_worst(t["grads"], t_ref["grads"], zero)
+            spreads[how] = {"grad_worst_ratio_to_limit": s,
+                            "worst_tensors": s_top}
+            del t
+        bar = max(1.0, SPREAD_FACTOR * max(
+            s["grad_worst_ratio_to_limit"] for s in spreads.values()))
+    bdir = os.path.join(work, f"b_{name}")
+    dist.torchrun(["-m", mh.TOOL, *argv(rank_dtype), "--backend", "gloo",
+                   "--out", bdir, "--tensors"], 2, bdir, timeout=600,
+                  env=env)
+    ranks, b_worst, b_stats, b_ok, b_top, shape = [], 0.0, 0.0, True, [], None
+    for r in range(2):
+        with open(os.path.join(bdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        ten = torch.load(os.path.join(bdir, f"rank{r}.pt"),
+                         weights_only=True)
+        w, fin, top = _grad_worst(ten["grads"], t_ref["grads"], zero)
+        st, ints = _stats_worst(ten["buffers"], t_ref["buffers"])
+        b_worst, b_stats = max(b_worst, w), max(b_stats, st)
+        b_ok, b_top = b_ok and fin and ints, b_top or top
+        if r == 0 and ref_accum != DP_ACCUM:
+            # the same step at the same accum_steps, of other GEMM shapes
+            # (printed, not checked)
+            sw, _, s_top = _grad_worst(ten["grads"],
+                                       same[rank_dtype][1]["grads"], zero)
+            shape = {"accum_steps": DP_ACCUM,
+                     "grad_worst_ratio_to_limit": sw, "worst_tensors": s_top}
+        del ten
+    b = {"dtype": rank_dtype, "reference_accum_steps": ref_accum,
+         "reference_loss": ref["loss"], "reorder_spread": spreads,
+         "grad_bar_ratio_to_limit": bar,
+         "grad_worst_ratio_to_limit": b_worst, "worst_tensors": b_top,
+         "stats_worst_ratio_to_limit": b_stats,
+         "against_other_shapes": shape,
+         "rows_per_rank": [x["rows"] for x in ranks],
+         "losses": [x["loss"] for x in ranks],
+         "params_bitwise_equal": ranks[0]["param_checksum"]
+         == ranks[1]["param_checksum"],
+         "step_s": [x["step_s"] for x in ranks],
+         "peak_mem_gb": [x["peak_mem_gb"] for x in ranks],
+         "launches": [x["launches"] for x in ranks]}
+    line.update(b_gloo_two_ranks=b, seconds=time.time() - t0)
+    del t_one16, t_one32, t_ref
+    torch.cuda.empty_cache()
+    emit({"phase": "dp_variant", "variant": name, **line})
+
+    missing = [_missing(res16["launches"]), _missing(res32["launches"])] + [
+        _missing(x["launches"], MODEL_KERNELS
+                 + (TC_KERNELS if rank_dtype == "bfloat16" else ()))
+        for x in ranks]
+    if any(missing):
+        raise AssertionError(f"dp {name}: kernels not launched {missing}")
+    losses = [a16["loss"], a16["loss_no_group"], a32["loss"],
+              a32["loss_no_group"], *b["losses"], ref["loss"]]
+    if not (fin16 and w16 <= 1.0 and fin32 and ints32 and w32 <= 1.0
+            and s32 <= 1.0 and all(np.isfinite(losses))
+            and abs(a16["loss"] - a16["loss_no_group"])
+            <= 1e-5 * abs(a16["loss_no_group"])
+            and abs(a32["loss"] - a32["loss_no_group"])
+            <= 1e-5 * abs(a32["loss_no_group"])):
+        raise AssertionError(f"dp {name}: (a) the DP step at world 1 "
+                             f"differs from the step without a group: "
+                             f"{line}")
+    if not (b_ok and b_worst <= bar and b_stats <= 1.0
+            and b["params_bitwise_equal"]
+            and b["rows_per_rank"] == [DP_BATCH // 2] * 2
+            and all(abs(x - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+                    for x in b["losses"])):
+        raise AssertionError(f"dp {name}: (b) two ranks differ from one "
+                             f"process: {line}")
+    return line, res16["launches"], [x["launches"] for x in ranks]
 
 
 def dp_phase(torch, smi):
-    """Data parallelism at Oxford width (bf16 compute, fp32 parameters,
-    no activation checkpointing), through tools/multihost_smoke on a
-    synthetic PNV dataset of 2 x DP_BATCH clouds: (a) the DP step at
-    world 1 over NCCL (batch 32 x accum 4) against the step without a
-    process group (twice: the second gives the card's own run-to-run
-    spread); (b) two ranks as two processes on this card over gloo (16
-    rows x accum 2 each) against (a)'s step without a group; (c)
-    retrieval_topk sharded over two such ranks against one card. Returns
-    (launches of (a)'s DP step, of (b)'s two ranks, the phase's
-    numbers)."""
+    """Data parallelism at Oxford width (fp32 parameters, no activation
+    checkpointing), through tools/multihost_smoke on a synthetic PNV
+    dataset of 2 x DP_BATCH clouds, batch DP_BATCH as DP_ACCUM global
+    microbatches of 8. For each model of DP_VARIANTS (``dp_variant``):
+    (a) the DP step at world 1 over NCCL against the step without a
+    process group, in bf16 (the latter twice: the card's run-to-run
+    spread) and at fp32; (b) two ranks as two processes on this card
+    over gloo, each holding 4 rows of every global microbatch, against
+    one process (DP_VARIANTS says which). Then (c) retrieval_topk sharded
+    over two such ranks against one card. Returns ((a)'s bf16 launches
+    and (b)'s ranks' launches per variant, the phase's numbers)."""
     import shutil
 
     from hotformerloc_torch.evaluation.evaluate import retrieval_topk
@@ -1942,92 +2214,17 @@ def dp_phase(torch, smi):
     data = os.path.join(work, "data")
     mh.make_synthetic_dataset(data, n=2 * DP_BATCH, points=4096)
     common = ["--data", data, "--config", "oxford", "--batch",
-              str(DP_BATCH), "--dtype", "bfloat16", "--device", "cuda"]
-    out = {"card": smi, "config": "oxford_config", "dtype": "bfloat16",
-           "grad_checkpoint": False, "global_batch": DP_BATCH,
-           "microbatch": DP_BATCH // 4, "grad_tol": GRAD_TOL}
+              str(DP_BATCH), "--device", "cuda"]
+    out = {"card": smi, "config": "oxford_config", "grad_checkpoint": False,
+           "global_batch": DP_BATCH, "microbatch": DP_BATCH // DP_ACCUM,
+           "grad_tol": GRAD_TOL, "spread_factor": SPREAD_FACTOR}
     # the ranks run as separate processes that import the package from here
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         filter(None, [here, os.environ.get("PYTHONPATH")]))}
-
-    # -- (a) world 1 over NCCL -------------------------------------------
-    t0 = time.time()
-    world1 = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                  MASTER_ADDR="localhost", MASTER_PORT=str(dist.free_port()))
-    os.environ.update(world1)
-    try:
-        group, dev = dist.init_from_env("cuda")
-        try:
-            if torch.distributed.get_backend(group) != "nccl":
-                raise AssertionError("world-1 group is not NCCL")
-            args = mh.parse_args(common + ["--accum", "4", "--out", work])
-            res_dp, ten_dp = mh.run(args, group, dev)
-        finally:
-            dist.close(group)
-    finally:
-        for k in world1:
-            os.environ.pop(k)
-    torch.cuda.empty_cache()
-    res_one, ten_one = mh.run(args, None, dev)
-    torch.cuda.empty_cache()
-    res_rep, ten_rep = mh.run(args, None, dev)
-    torch.cuda.empty_cache()
-    worst, finite = _grad_worst(ten_dp["grads"], ten_one["grads"])
-    spread, _ = _grad_worst(ten_rep["grads"], ten_one["grads"])
-    a = {"seconds": time.time() - t0, "loss": res_dp["loss"],
-         "loss_no_group": res_one["loss"], "loss_repeat": res_rep["loss"],
-         "grad_norm": res_dp["grad_norm"],
-         "grad_worst_ratio_to_limit": worst,
-         "repeat_grad_worst_ratio_to_limit": spread,
-         "step_s": res_dp["step_s"], "step_s_no_group": res_one["step_s"],
-         "peak_mem_gb": res_dp["peak_mem_gb"],
-         "peak_mem_gb_no_group": res_one["peak_mem_gb"],
-         "octree_overflow": res_dp["octree_overflow"],
-         "launches": res_dp["launches"]}
-    out["a_nccl_world1"] = a
-    if _missing(res_dp["launches"]):
-        raise AssertionError(f"(a) launched no {_missing(res_dp['launches'])}")
-    if not (finite and worst <= 1.0
-            and abs(a["loss"] - a["loss_no_group"])
-            <= 1e-5 * abs(a["loss_no_group"])):
-        raise AssertionError(f"(a) DP step at world 1 differs from the step "
-                             f"without a group: {a}")
-
-    # -- (b) two ranks on this card over gloo -------------------------------
-    t0 = time.time()
-    bdir = os.path.join(work, "b")
-    dist.torchrun(["-m", mh.TOOL, *common, "--accum", "2", "--backend",
-                   "gloo", "--out", bdir, "--tensors"], 2, bdir,
-                  timeout=600, env=env)
-    ranks = []
-    for r in range(2):
-        with open(os.path.join(bdir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    grads = torch.load(os.path.join(bdir, "rank0.pt"),
-                       weights_only=True)["grads"]
-    worst, finite = _grad_worst(grads, ten_one["grads"])
-    b = {"seconds": time.time() - t0,
-         "rows_per_rank": [x["rows"] for x in ranks],
-         "backend": ranks[0]["backend"],
-         "losses": [x["loss"] for x in ranks],
-         "grad_worst_ratio_to_limit": worst,
-         "params_bitwise_equal": ranks[0]["param_checksum"]
-         == ranks[1]["param_checksum"],
-         "step_s": [x["step_s"] for x in ranks],
-         "peak_mem_gb": [x["peak_mem_gb"] for x in ranks],
-         "launches": [x["launches"] for x in ranks]}
-    out["b_gloo_two_ranks"] = b
-    for x in ranks:
-        if _missing(x["launches"]):
-            raise AssertionError(f"(b) rank {x['rank']} launched no "
-                                 f"{_missing(x['launches'])}")
-    if not (finite and worst <= 1.0 and b["params_bitwise_equal"]
-            and b["rows_per_rank"] == [DP_BATCH // 2] * 2
-            and all(abs(x - res_one["loss"]) <= 1e-5 * abs(res_one["loss"])
-                    for x in b["losses"])):
-        raise AssertionError(f"(b) two ranks differ from one process: {b}")
-    del ten_dp, ten_one, ten_rep, grads
-
+    launches, rank_launches = {}, {}
+    for name in DP_VARIANTS:
+        out[name], launches[name], rank_launches[name] = dp_variant(
+            torch, name, common, work, env)
     # -- (c) retrieval sharded over two ranks --------------------------------
     t0 = time.time()
     rng = np.random.default_rng(11)
@@ -2063,8 +2260,9 @@ def dp_phase(torch, smi):
     if not (c["index_mismatches"] == 0 and c["max_abs_dist_err"] <= 1e-5
             and c["max_abs_recomputed_err"] <= 1e-5 and c["ranks_agree"]):
         raise AssertionError(f"(c) sharded retrieval off: {c}")
+
     shutil.rmtree(work, ignore_errors=True)
-    return res_dp["launches"], [x["launches"] for x in ranks], out
+    return launches, rank_launches, out
 
 
 def cylindrical_batch(torch, dev, pts):
@@ -2507,8 +2705,13 @@ def ablations_phase(torch, dev, smi, rnd):
                 cfg, attn_drop=0.0, proj_drop=0.0), remat_check=name == "A")
         out["variants"][name] = {
             "overrides": dict(over), "batch": "surface-like, plane normals"
-            if normals else "uniform", "serve": serve, "train": train,
-            "seconds": time.time() - t0}
+            if normals else "uniform", "serve": serve, "train": train}
+        if cfg.xcpe:
+            t1 = time.time()
+            out["variants"][name]["xcpe_remat"] = dict(
+                xcpe_remat_check(torch, dev, cfg, p, pmask),
+                seconds=time.time() - t1)
+        out["variants"][name]["seconds"] = time.time() - t0
         emit({"phase": "ablation", "variant": name,
               **out["variants"][name]})
     return rows, launches, out
@@ -2718,6 +2921,225 @@ def probes_phase(torch):
     return line, tools
 
 
+def weights_phase(torch, smi, pts, pmask):
+    """Reference weights in, at Oxford width and depth
+    (configs/oxford_model.txt, octree depth 9, 4096 points): a state dict
+    with the reference's names and shapes (the converter's
+    ``synthesize_reference_state_dict``, seed 0) saved as a .pth,
+    converted by the converter's CLI to a file, loaded through
+    pnv_evaluate's ``load_model_embed_fn(device="cuda")``, and the 32
+    clouds embedded in bf16: K1, K3 and K5 launched (counters zeroed just
+    before, read just after), the bf16 descriptors within cos >= 0.999
+    of the plain path's fp32 ones; a model loaded from the same file: its
+    fp32 descriptors on the kernel path against the plain path at the
+    slice phase's bar (cos >= 0.9999, max abs <= 1e-4); bf16 ms per batch
+    (median of 5)."""
+    import shutil
+    import types
+
+    from hotformerloc_torch.config.params import parse_model_config
+    from hotformerloc_torch.evaluation.embed import make_embed_fn
+    from hotformerloc_torch.evaluation.pnv_evaluate import load_model_embed_fn
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.tools import convert_reference_weights as crw
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "weights")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    mpath = os.path.join(here, "configs", "oxford_model.txt")
+    mp = parse_model_config(mpath, octree_depth=9, num_points=4096)
+    cfg = mp.config
+    ref = os.path.join(work, "reference.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                crw.synthesize_reference_state_dict(cfg, seed=0).items()},
+               ref)
+    conv = os.path.join(work, "converted.pt")
+    t0 = time.time()
+    state = crw.main(["--weights", ref, "--model_config", mpath,
+                      "--octree_depth", "9", "--num_points", "4096",
+                      "--out", conv])
+    convert_s = time.time() - t0
+    embed, name = load_model_embed_fn(types.SimpleNamespace(model_params=mp),
+                                      conv, device="cuda")
+    kernels.reset_launches()
+    d16 = embed(pts, pmask)
+    torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] for k in ("window_attn",
+                                                 "octree_dwconv",
+                                                 "octree_conv")}
+    host_ms = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        embed(pts, pmask)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+    # the fp32 model from the same --out file, beside the one loaded
+    model = HOTFormerLoc(cfg, device="cuda")
+    model.load_state_dict(torch.load(conv, weights_only=True))
+    k32 = make_embed_fn(model, torch.float32)(pts, pmask)["global"]
+    model.set_use_kernels(False)
+    p32 = make_embed_fn(model, torch.float32)(pts, pmask)["global"]
+    cos = float((k32 * p32).sum(1).min())
+    maxabs = float((k32 - p32).abs().max())
+    cos16 = float((d16.float() * p32).sum(1).min())
+    out = {"card": smi, "model_config": "configs/oxford_model.txt",
+           "parameters": sum(v.numel() for v in state.values()),
+           "convert_s": convert_s, "weights_name": name,
+           "batch": len(pts), "launches": launches,
+           "fp32_kernel_vs_plain_min_cos": cos,
+           "fp32_kernel_vs_plain_max_abs": maxabs,
+           "bf16_vs_fp32_plain_min_cos": cos16,
+           "embed_bf16_ms_per_batch": statistics.median(host_ms),
+           "embed_bf16_ms_all": host_ms}
+    del model, embed
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not (all(launches.values()) and torch.isfinite(d16).all()
+            and d16.shape == (len(pts), cfg.output_dim)
+            and cos >= 0.9999 and maxabs <= 1e-4 and cos16 >= 0.999):
+        raise AssertionError(f"weights phase off: {out}")
+    return out
+
+
+def tools_worker(path):
+    """The tools phase's process: bisect_step's six stages, plan_probe and
+    component_profile's band, cpe, rtsa and pool experiments at Oxford
+    shapes, each tool's lines printed; writes their lines, seconds and
+    the model kernels' launches over the run (counters zeroed just
+    before, read just after) to ``path``."""
+    import torch
+
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.tools import (bisect_step, component_profile,
+                                          plan_probe)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    kernels.reset_launches()
+    t0 = time.time()
+    out["bisect"] = bisect_step.run(["--iters", "2", "--device_iters", "1"])
+    out["bisect_s"] = time.time() - t0
+    t0 = time.time()
+    out["plan_probe"] = plan_probe.run(["--iters", "3"])
+    out["plan_probe_s"] = time.time() - t0
+    t0 = time.time()
+    out["component_profile"], _ = component_profile.run(
+        ["--exp", "band,cpe,rtsa,pool", "--iters", "10",
+         "--out", os.path.join(os.path.dirname(path),
+                               "COMPONENT_PROFILE_torch.json")])
+    out["component_profile_s"] = time.time() - t0
+    torch.cuda.synchronize()
+    out["launches"] = {k: kernels.LAUNCHES[k] for k in MODEL_KERNELS}
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tools_phase(torch, smi):
+    """The step-bisection and profile tools at Oxford shapes on the card,
+    in a process of their own (``tools_worker``: torch.profiler, after
+    the many profiled windows of this process's earlier phases, returned
+    windows without device events): bisect_step's six stages (2 timed
+    calls each: wall, CUDA events; one more under torch.profiler for the
+    device time, so the host's share of each stage), plan_probe's table
+    kinds and component_profile's band, cpe, rtsa and pool experiments
+    (band holds K3, K4 and K5 against the plain path and raises on a
+    disagreement). Every stage must have device time, at most its wall
+    time; the model kernels' launches over the tools' run must cover
+    K1-K6."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "tools.json")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [here, os.environ.get("PYTHONPATH")]))}
+    subprocess.run([sys.executable, os.path.abspath(__file__),
+                    "--tools-worker", path], env=env, check=True,
+                   timeout=900)
+    with open(path) as f:
+        out = {"card": smi, **json.load(f)}
+    shutil.rmtree(work, ignore_errors=True)
+    stages, plan = out["bisect"], out["plan_probe"]
+    bad = [ln["stage"] for ln in stages + plan
+           if not (ln["device_ms"] and 0 < ln["device_ms"]
+                   <= ln["wall_ms"] * 1.05)]
+    if [ln["stage"] for ln in stages] != [
+            "null", "octree", "octree+plan", "forward", "loss_fwd", "grad",
+            "multistage"] or bad or _missing(out["launches"]):
+        raise AssertionError(f"tools phase off: stages without device time "
+                             f"{bad}, no launches of "
+                             f"{_missing(out['launches'])}")
+    return out
+
+
+def xcpe_remat_check(torch, dev, cfg, pts, pmask):
+    """The xCPE's conv under activation checkpointing (ablation variant
+    A): one fp32 step of 16 clouds as 2 microbatches of 8 without
+    checkpointing, and with grad_checkpoint under 'save_hot' and under
+    None. K5's launches (counters zeroed just before, read just after):
+    'save_hot' keeps every xCPE conv's output (op
+    ``hotformerloc::octree_conv``), so the backward runs K5 no more times
+    than without checkpointing; None runs it once more per xCPE site of
+    the checkpointed blocks and microbatch. Loss within 1e-6 and
+    gradients within GRAD_TOL of the step without checkpointing."""
+    from hotformerloc_torch.losses.losses import make_loss
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.ops import kernels
+    from hotformerloc_torch.training.optim import (lr_schedule,
+                                                   make_optimizer)
+    from hotformerloc_torch.training.step import StepConfig, make_train_step
+
+    sites = sum(c[-1] for c in path_cases(cfg)["octree_conv"]
+                if c[0].startswith("xcpe_"))
+    batch = pair_batch(torch, dev, pts, pmask, 2 * MICRO)
+    res, out = {}, {"xcpe_sites": sites}
+    for policy in ("off", "save_hot", None):
+        m = HOTFormerLoc(dataclasses.replace(
+            cfg, grad_checkpoint=policy != "off",
+            remat_policy="save_hot" if policy == "off" else policy),
+            device=dev, generator=torch.Generator().manual_seed(0),
+            dtype=torch.float32)
+        opt = make_optimizer(m.named_parameters(), "adam",
+                             lr_schedule(5e-4, 100, 150), 1e-4)
+        step = make_train_step(m, opt, make_loss(
+            "truncatedsmoothap", positives_per_query=4),
+            StepConfig(accum_steps=2))
+        kernels.reset_launches()
+        st = step(batch, 0)
+        torch.cuda.synchronize()
+        res[policy] = (float(st["loss"]), {n: p.grad.detach().clone()
+                                           for n, p in m.named_parameters()})
+        zero = bn_shift_params(m)
+        out[str(policy)] = {"k5_launches": kernels.LAUNCHES["octree_conv"],
+                            "k6_launches": kernels.LAUNCHES[
+                                "octree_conv_bwd"]}
+        del m, opt, step, st
+        torch.cuda.empty_cache()
+    base = out["off"]["k5_launches"]
+    out["k5_recomputed_save_hot"] = out["save_hot"]["k5_launches"] - base
+    out["k5_recomputed_none"] = out["None"]["k5_launches"] - base
+    loss0, g0 = res["off"]
+    for policy in ("save_hot", None):
+        loss, g = res[policy]
+        worst, fin, _ = _grad_worst(g, g0, zero)
+        out[str(policy)].update(loss_diff=abs(loss - loss0),
+                                grad_worst_ratio_to_limit=worst,
+                                finite=fin)
+    if not (out["k5_recomputed_save_hot"] == 0
+            and out["k5_recomputed_none"] == 2 * sites and sites > 0
+            and all(out[p]["loss_diff"] <= 1e-6 and out[p]["finite"]
+                    and out[p]["grad_worst_ratio_to_limit"] <= 1.0
+                    for p in ("save_hot", "None"))):
+        raise AssertionError(f"xCPE under checkpointing off: {out}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2913,6 +3335,11 @@ def main():
     emit({"phase": "slice_seconds",
           "seconds": round(time.time() - t_phase, 1)})
 
+    # ---- 4b. reference weights in ----------------------------------------
+    t_phase = time.time()
+    emit({"phase": "weights", **weights_phase(torch, smi, pts, pmask),
+          "seconds": round(time.time() - t_phase, 1)})
+
     # ---- 5. backward kernels at the train path's shapes ------------------
     t_phase = time.time()
     bwd = bwd_kernel_phase(torch, dev, cfg, pts[:MICRO], spts[:MICRO],
@@ -2992,6 +3419,12 @@ def main():
           **scatter_phase(torch, dev,
                           dataclasses.replace(cfg, grad_checkpoint=False),
                           pts, pmask),
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 8c. the step-bisection and profile tools ------------------------
+    t_phase = time.time()
+    tools_line = tools_phase(torch, smi)
+    emit({"phase": "tools", **tools_line,
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 9. kernels line + result ----------------------------------------
@@ -3083,8 +3516,11 @@ def main():
             "launches": (train_launches if is_bwd else launches)[kname],
             "launches_train_step": train_launches[kname],
             "launches_entry": entry_launches[kname],
-            "launches_dp": dp_launches[kname],
-            "launches_dp_two_ranks": [la[kname] for la in dp_rank_launches],
+            "launches_dp": {v: la[kname] for v, la in dp_launches.items()},
+            "launches_dp_two_ranks": {v: [la[kname] for la in ranks]
+                                      for v, ranks in
+                                      dp_rank_launches.items()},
+            "launches_tools": tools_line["launches"][kname],
             "launches_cs_wild_places": cfg_launches[
                 "cs_wild_places_step" if is_bwd
                 else "cs_wild_places_forward"][kname],
@@ -3129,4 +3565,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-retrieval"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         sys.exit(dp_retrieval_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tools-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit(tools_worker(sys.argv[2]))
     sys.exit(main())

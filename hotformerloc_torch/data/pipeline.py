@@ -22,6 +22,7 @@ from hotformerloc_torch.data.augmentation import (CylindricalCoordinates,
 from hotformerloc_torch.data.loaders import PointCloudLoader
 from hotformerloc_torch.data.sampler import BatchSampler, masks_for_batch
 from hotformerloc_torch.data.tuples import TrainingTuple, load_training_queries
+from hotformerloc_torch.parallel.dist import local_rows
 
 
 def clip_to_unit_box(pc: np.ndarray,
@@ -98,14 +99,14 @@ class TrainingDataset:
         return pc
 
     def make_batch(self, labels: List[int], num_points: int,
-                   rng, local_slice: Optional[slice] = None):
+                   rng, local_rows: Optional[np.ndarray] = None):
         """Assemble a batch (or, multi-host, one host's shard of it).
 
-        With ``local_slice`` only that contiguous row range of the
-        global batch is loaded; the (B, B) positive/negative masks are
-        computed from the full global label list and row-sliced, so the
-        shards stitched together reproduce exactly the single-host
-        batch.
+        With ``local_rows`` (global row indices) only those rows of the
+        global batch are loaded, in that order; the (B, B)
+        positive/negative masks are computed from the full global label
+        list and row-selected, so the shards stitched together reproduce
+        exactly the single-host batch.
 
         ``rng`` is either a Generator (single-host convenience) or a
         seed-sequence tuple; with a tuple every random draw is keyed by
@@ -120,11 +121,11 @@ class TrainingDataset:
                 int(x) for x in rng.integers(0, 2**31 - 1, 2))
         else:
             root = tuple(int(x) for x in rng)
-        lo = 0 if local_slice is None else local_slice.start
-        local = labels if local_slice is None else labels[local_slice]
+        rows = (np.arange(len(labels)) if local_rows is None
+                else np.asarray(local_rows))
         clouds = [
-            self.load_cloud(l, np.random.default_rng((*root, 2, lo + i)))
-            for i, l in enumerate(local)]
+            self.load_cloud(labels[i], np.random.default_rng((*root, 2, i)))
+            for i in rows.tolist()]
         if self.set_transform is not None:
             # same batch-level transform draw for all clouds AND all
             # hosts: keyed by (root, 1), independent of the local shard
@@ -137,14 +138,14 @@ class TrainingDataset:
         # Per-cloud subsample keyed by global row (pack_clouds then has
         # nothing left to subsample, keeping packing deterministic).
         clouds = [
-            c[np.random.default_rng((*root, 3, lo + i)).choice(
+            c[np.random.default_rng((*root, 3, i)).choice(
                 len(c), num_points, replace=False)]
             if len(c) > num_points else c
-            for i, c in enumerate(clouds)]
+            for i, c in zip(rows.tolist(), clouds)]
         pts, msk = pack_clouds(clouds, num_points, rng=None)
         pos, neg = masks_for_batch(self.queries, labels)
-        if local_slice is not None:
-            pos, neg = pos[local_slice], neg[local_slice]
+        if local_rows is not None:
+            pos, neg = pos[rows], neg[rows]
         return {"points": pts, "pmask": msk,
                 "positives_mask": pos, "negatives_mask": neg}
 
@@ -162,10 +163,9 @@ def _pool_init(dataset: "TrainingDataset", num_points: int) -> None:
     _POOL_NP = num_points
 
 
-def _pool_make(labels, root, local_slice):
+def _pool_make(labels, root, rows):
     """Module-level worker entry (picklable) for the process pool."""
-    return _POOL_DS.make_batch(labels, _POOL_NP, root,
-                               local_slice=local_slice)
+    return _POOL_DS.make_batch(labels, _POOL_NP, root, local_rows=rows)
 
 
 class DataLoader:
@@ -181,19 +181,24 @@ class DataLoader:
     is numpy over whole clouds and releases the GIL.
 
     Data parallelism: pass ``process_index`` / ``process_count`` (the
-    trainer passes its rank and world size). Every rank must construct
-    the SAME seeded sampler (identical global batch lists); each rank
-    then loads only its contiguous row range of every batch (rows r·b ..
-    (r+1)·b, the order ``parallel.dist.all_gather_rows`` stitches back),
-    aligned to the k=2 positive-pair groups. Batches whose size is not
-    divisible by ``process_count * K`` are skipped (the sampler's
-    ragged flush batch) so every rank always holds the same row count.
+    trainer passes its rank and world size) and ``micro_batches`` (the
+    train step's accum_steps). Every rank must construct the SAME seeded
+    sampler (identical global batch lists); each rank then loads only
+    its rows of every batch in the train step's microbatch layout
+    (``parallel.dist.local_rows``: its 1/process_count share of each of
+    the micro_batches global microbatches, the order
+    ``parallel.dist.all_gather_micro`` stitches back). The rule: with
+    process_count > 1, a batch whose size is not a multiple of
+    ``process_count * micro_batches`` is skipped (such as the sampler's
+    ragged flush batch), so every rank holds the same number of rows of
+    every microbatch.
     """
 
     def __init__(self, dataset: TrainingDataset, sampler: BatchSampler,
                  num_points: int, seed: int = 0, prefetch: int = 2,
                  process_index: int = 0, process_count: int = 1,
-                 num_workers: int = 0, worker_mode: str = "thread"):
+                 num_workers: int = 0, worker_mode: str = "thread",
+                 micro_batches: int = 1):
         self.dataset = dataset
         self.sampler = sampler
         self.num_points = num_points
@@ -201,21 +206,22 @@ class DataLoader:
         self.prefetch = prefetch
         self.process_index = process_index
         self.process_count = process_count
+        self.micro_batches = max(int(micro_batches), 1)
         self.num_workers = num_workers
         self.worker_mode = worker_mode
         self.epoch = 0
         self._pool = None       # persistent across epochs (see _get_pool)
 
-    def _local_slice(self, batch_len: int) -> Optional[slice]:
+    def _local_rows(self, batch_len: int) -> Optional[np.ndarray]:
         if self.process_count == 1:
             return None
-        per = batch_len // self.process_count
-        return slice(self.process_index * per, (self.process_index + 1) * per)
+        return local_rows(batch_len, self.micro_batches, self.process_index,
+                          self.process_count)
 
     def _epoch_batches(self):
         batches = self.sampler.generate_batches()
         if self.process_count > 1:
-            group = self.process_count * BatchSampler.K
+            group = self.process_count * self.micro_batches
             batches = [b for b in batches if len(b) % group == 0]
         return batches
 
@@ -225,7 +231,7 @@ class DataLoader:
         # draws depend on neither process_count nor num_workers.
         return self.dataset.make_batch(
             labels, self.num_points, (self.seed + epoch, bi),
-            local_slice=self._local_slice(len(labels)))
+            local_rows=self._local_rows(len(labels)))
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._epoch_batches()
@@ -306,7 +312,7 @@ class DataLoader:
             if self.worker_mode == "process":
                 pending[bi] = self._submit(
                     labels, (self.seed + epoch, bi),
-                    self._local_slice(len(labels)))
+                    self._local_rows(len(labels)))
             else:
                 pending[bi] = self._submit(epoch, bi, labels)
             while len(pending) >= window:

@@ -19,7 +19,14 @@ what ``cfg.remat_policy`` keeps, as the JAX package's ``_remat`` does
 every window attention (K1, the op ``hotformerloc::window_attn``; JAX's
 "attn_out" tag); 'save_hot' (the default) keeps those and the output of
 every CPE conv (K3, ``hotformerloc::octree_dwconv``, before its
-LayerNorm; JAX's "cpe_out"), so the backward runs neither kernel again.
+LayerNorm; JAX's "cpe_out"; an xCPE's full conv, K5,
+``hotformerloc::octree_conv``, before its Linear), so the backward runs
+none of these kernels again. Inside a checkpointed block the only full
+octree convs are the xCPEs' (the stem runs outside, the down-convs are
+plain code), so keeping ``octree_conv`` keeps the CPE's conv alone.
+JAX's tag sits on the output of the xCPE's Linear, which follows the
+conv; the port keeps the conv's own output, the one kernel output of
+the xCPE.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from hotformerloc_torch.ops.plan import OctreePlan
 
 # The kernel ops whose outputs each remat policy keeps.
 REMAT_SAVED_OPS = {None: (), "save_attn": ("window_attn",),
-                   "save_hot": ("window_attn", "octree_dwconv")}
+                   "save_hot": ("window_attn", "octree_dwconv",
+                                "octree_conv")}
 
 
 def _keep_ops(names):

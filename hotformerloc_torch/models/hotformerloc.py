@@ -146,6 +146,12 @@ class HOTFormerLoc(nn.Module):
         """Every module with running statistics, in module order."""
         return [m for m in self.modules() if isinstance(m, RunningStats)]
 
+    def set_stats_group(self, group) -> None:
+        """Sum the batch statistics of train-mode forwards over the ranks
+        of ``group`` (data parallelism; None: this process's rows)."""
+        for m in self.stats_modules():
+            m.group = group
+
     def staged_stats(self) -> List[Optional[dict]]:
         """The running statistics the last train-mode forward staged, one
         entry per ``stats_modules`` module."""

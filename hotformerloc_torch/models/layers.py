@@ -26,7 +26,11 @@ them (``staged``) without writing them; ``HOTFormerLoc.commit_stats``
 writes them. The train step commits once per step, the forward it keeps
 (models/hotformerloc.py, training/step.py), so a recomputed forward
 (stage 3 of the multistage step, activation checkpointing) changes
-nothing.
+nothing. Under data parallelism each such module's ``group`` is the
+process group (``HOTFormerLoc.set_stats_group``): a train-mode forward
+at world > 1 sums its batch statistics over the ranks, so they are the
+whole global microbatch's, as under the JAX package's mesh. Eval mode
+and world 1 never reduce.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from torch import nn
 
 from hotformerloc_torch.ops import conv as plain
 from hotformerloc_torch.ops.kernels import octree_conv as kconv
+from hotformerloc_torch.parallel import dist
 
 # Parameter initialisers, matching the JAX package's distributions:
 #   ("trunc", std)  N(0, std^2) truncated to [-2 std, 2 std] (flax
@@ -167,11 +172,33 @@ class Mlp(nn.Module):
         return self.drop2(self.fc2(self.drop1(F.gelu(self.fc1(x)))))
 
 
+class _Shared:
+    """A reference that ``copy.deepcopy`` shares instead of copying (a
+    process group cannot be copied; a model copy keeps its group)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 class RunningStats(nn.Module):
     """A module with running statistics (buffers, the JAX package's
     ``batch_stats``). A train-mode forward puts the new values in
-    ``staged`` instead of writing them; ``commit`` writes them."""
+    ``staged`` instead of writing them; ``commit`` writes them.
+    ``group`` is the process group its batch statistics are summed over
+    (None: this process's rows only)."""
     staged: Optional[dict] = None
+    _group = _Shared(None)
+
+    @property
+    def group(self):
+        return self._group.value
+
+    @group.setter
+    def group(self, value) -> None:
+        self._group = _Shared(value)
 
     def stage(self, **new) -> None:
         self.staged = {k: v.detach() for k, v in new.items()}
@@ -181,15 +208,36 @@ class RunningStats(nn.Module):
             for k, v in (staged or {}).items():
                 getattr(self, k).copy_(v)
 
+    def reduce_group(self):
+        """The group a forward sums its statistics over: ``group`` in
+        train mode at world > 1, else None."""
+        return (self.group if self.training and dist.world(self.group) > 1
+                else None)
 
-def _masked_mean(v: torch.Tensor, valid: Optional[torch.Tensor]):
+
+def _masked_mean(v: torch.Tensor, valid: Optional[torch.Tensor],
+                 group=None, grad: bool = True):
     """Mean of fp32 v (..., C) over every axis but the last, over the
-    rows where ``valid`` (v.shape[:-1]) holds when given."""
+    rows where ``valid`` (v.shape[:-1]) holds when given. With ``group``
+    (world > 1) the sum and the row count are summed over its ranks
+    first, differentiably (``dist.all_reduce_sum_diff``) or, with
+    ``grad`` False, as constants (``dist.all_reduce_sum``)."""
     red = tuple(range(v.dim() - 1))
+    if group is None:
+        if valid is None:
+            return v.mean(red)
+        w = valid.to(torch.float32)[..., None]
+        return (v * w).sum(red) / torch.clamp(w.sum(), min=1.0)
     if valid is None:
-        return v.mean(red)
-    w = valid.to(torch.float32)[..., None]
-    return (v * w).sum(red) / torch.clamp(w.sum(), min=1.0)
+        s = v.sum(red)
+        n = v.new_full((1,), float(math.prod(v.shape[:-1])))
+    else:
+        w = valid.to(torch.float32)[..., None]
+        s, n = (v * w).sum(red), w.sum().reshape(1)
+    both = torch.cat([s, n.to(s.dtype)])
+    both = (dist.all_reduce_sum_diff if grad else dist.all_reduce_sum)(
+        both, group)
+    return both[:-1] / torch.clamp(both[-1], min=1.0)
 
 
 class MaskedBatchNorm(RunningStats):
@@ -211,8 +259,9 @@ class MaskedBatchNorm(RunningStats):
     def forward(self, x, valid=None):
         xf = x.float()
         if self.training:
-            mean = _masked_mean(xf, valid)
-            var = _masked_mean((xf - mean) ** 2, valid)
+            g = self.reduce_group()
+            mean = _masked_mean(xf, valid, g)
+            var = _masked_mean((xf - mean) ** 2, valid, g)
             m = self.momentum
             self.stage(mean=m * self.mean + (1 - m) * mean,
                        var=m * self.var + (1 - m) * var)
@@ -283,7 +332,10 @@ class PowerNorm(RunningStats):
         phi = self.running_phi
         if self.training:
             it = self.iters + 1
-            var = _masked_mean(xs * xs, valid)
+            # no gradient reaches the statistics (PowerCoreFn), so the
+            # ranks' sums travel as constants
+            var = _masked_mean(xs * xs, valid, self.reduce_group(),
+                               grad=False)
             denom = torch.where(it <= self.warmup_iters, var, phi) + self.eps
             z = PowerCoreFn.apply(xs, denom, var + self.eps, self.ema_gz,
                                   self.alpha_bkw)
@@ -328,9 +380,10 @@ class BatchNorm(RunningStats):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = _masked_mean(xf, None)
-            var = (_masked_mean((xf - mean) ** 2, None) if self.two_pass
-                   else torch.clamp(_masked_mean(xf * xf, None)
+            g = self.reduce_group()
+            mean = _masked_mean(xf, None, g)
+            var = (_masked_mean((xf - mean) ** 2, None, g) if self.two_pass
+                   else torch.clamp(_masked_mean(xf * xf, None, g)
                                     - mean * mean, min=0.0))
             m = self.momentum
             self.stage(mean=m * self.mean + (1 - m) * mean,
@@ -483,9 +536,8 @@ class CPE(_KernelRouted):
     ``xcpe``: a full 27-tap conv with bias (K5 forward, K6 backward, at
     every depth; the JAX package sends it through its banded conv, the
     same function) followed by a Linear, in place of the depthwise conv.
-    Activation checkpointing's 'save_hot' keeps K3's output but not K5's,
-    so an xCPE's conv runs again in the backward (the values are the
-    same)."""
+    Activation checkpointing's 'save_hot' keeps the conv's output (K3's,
+    or the xCPE's K5's), so the backward runs neither again."""
 
     def __init__(self, dim: int, conv_norm: str = "layernorm",
                  xcpe: bool = False, device=None):

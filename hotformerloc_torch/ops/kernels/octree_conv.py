@@ -6,9 +6,11 @@ convolutions, forward and backward.
 backwards K4/K6 (csrc/octree_conv.cu); on CPU tensors they run the plain
 versions in ops/conv.py. K3 and K4 go through the dispatcher as the
 ops ``hotformerloc::octree_dwconv`` and ``hotformerloc::octree_dwconv_bwd``,
-so that a selective activation checkpoint policy (models/backbone.py
-``run_block``) can keep K3's output instead of running K3 again in the
-backward. They replace
+K5 and K6 as ``hotformerloc::octree_conv`` and
+``hotformerloc::octree_conv_bwd``, so that a selective activation
+checkpoint policy (models/backbone.py ``run_block``) can keep K3's
+output, and an xCPE's K5 output, instead of running the kernel again in
+the backward. They replace
 hotformerloc_tpu/ops/pallas/band_conv.py:_dw_fwd_kernel/_dw_bwd_kernel
 (entry ``banded_dwconv``) and :_conv_fwd_kernel/_conv_bwd_kernel (entry
 ``banded_conv``); the direct gather needs no band tables and is exact for
@@ -341,27 +343,56 @@ class OctreeDwconvFn(torch.autograd.Function):
                 dw.to(ctx.w_dtype) if need[2] else None, None)
 
 
+@torch.library.custom_op("hotformerloc::octree_conv", mutates_args=())
+def octree_conv_op(x: torch.Tensor, neigh: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> torch.Tensor:
+    """K5 as a dispatcher op (w, b in x's dtype): the kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    return _conv_fwd(x, neigh, w, b)
+
+
+@torch.library.custom_op("hotformerloc::octree_conv_bwd", mutates_args=())
+def octree_conv_bwd_op(x: torch.Tensor, neigh: torch.Tensor,
+                       w: torch.Tensor, dy: torch.Tensor, need_dx: bool,
+                       tap_dst: Optional[torch.Tensor],
+                       tap_src: Optional[torch.Tensor],
+                       tap_count: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 as a dispatcher op (``octree_conv_bwd``; the tap lists as three
+    tensors, all None to build them here). dx is an empty tensor when
+    ``need_dx`` is False."""
+    taps = (None if tap_dst is None
+            else TapLists(dst=tap_dst, src=tap_src, count=tap_count))
+    dx, dw, db = octree_conv_bwd(x, neigh, w, dy, need_dx, taps)
+    return (x.new_empty(0) if dx is None else dx), dw, db
+
+
 class OctreeConvFn(torch.autograd.Function):
-    """K5 forward, K6 backward (plain versions on CPU tensors). dx is not
-    computed when x needs no gradient (the stem's input features)."""
+    """K5 forward, K6 backward (plain versions on CPU tensors), through
+    the ops ``hotformerloc::octree_conv`` and ``::octree_conv_bwd``. dx is
+    not computed when x needs no gradient (the stem's input features)."""
 
     @staticmethod
     def forward(ctx, x, neigh, w, b, taps):
+        kernels.check_device(x, "octree_conv")
         wc = w.to(x.dtype).contiguous()
         bc = None if b is None else b.to(x.dtype).contiguous()
         ctx.save_for_backward(x, neigh, wc)
         ctx.dtypes = (w.dtype, None if b is None else b.dtype)
         ctx.taps = taps
-        return _conv_fwd(x, neigh, wc, bc)
+        return octree_conv_op(x, neigh, wc, bc)
 
     @staticmethod
     def backward(ctx, dy):
         x, neigh, wc = ctx.saved_tensors
         need = ctx.needs_input_grad
-        dx, dw, db = octree_conv_bwd(x, neigh, wc, dy.contiguous(), need[0],
-                                     ctx.taps)
+        tl = ctx.taps
+        dx, dw, db = octree_conv_bwd_op(
+            x, neigh, wc, dy.contiguous(), bool(need[0]),
+            *((None,) * 3 if tl is None else (tl.dst, tl.src, tl.count)))
         w_dt, b_dt = ctx.dtypes
-        return (dx, None, dw.to(w_dt) if need[2] else None,
+        return (dx if need[0] else None, None,
+                dw.to(w_dt) if need[2] else None,
                 db.to(b_dt) if need[3] else None, None)
 
 

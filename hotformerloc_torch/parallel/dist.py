@@ -3,11 +3,16 @@
 Counterpart of hotformerloc_tpu/parallel/mesh.py. The JAX package shards
 each global batch over a 1-D 'data' mesh and lets XLA insert the
 embedding all-gather the metric loss needs. Here every rank is one
-process on one card (as ``torchrun`` starts them): it loads its own
-contiguous rows of each global batch (``DataLoader(process_index=rank,
-process_count=world)``), and the train step gathers the embeddings and
-mask rows explicitly (``training/step.py``), so the loss sees the full
-(B, B) affinity and mines hard negatives across every rank.
+process on one card (as ``torchrun`` starts them): it loads its own rows
+of each global batch in the JAX step's microbatch layout (``local_rows``:
+its 1/n share of every global microbatch; ``DataLoader(process_index=
+rank, process_count=world, micro_batches=accum_steps)``), and the train
+step gathers the embeddings and mask rows explicitly
+(``training/step.py``), so the loss sees the full (B, B) affinity and
+mines hard negatives across every rank. The norms' batch statistics are
+summed over the ranks inside the forward (``all_reduce_sum_diff``,
+``all_reduce_sum``), so they are those of the whole global microbatch,
+as under JAX's mesh.
 
 ``group`` arguments: None means one process without a process group;
 every helper is then the identity (``rank`` 0, ``world`` 1). A group of
@@ -29,6 +34,7 @@ import subprocess
 import sys
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -88,9 +94,10 @@ def all_gather_rows(x: torch.Tensor,
                     group: Optional[dist.ProcessGroup] = None
                     ) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) concatenated along
-    dim 0 in rank order: the global batch from the row shards that
-    ``DataLoader._local_slice`` gives rank r (rows r·b .. (r+1)·b).
-    Not differentiable: callers gather detached tensors."""
+    dim 0 in rank order (the global batch when rank r holds rows
+    r·b .. (r+1)·b, as in a single pass or an evaluation; see
+    ``all_gather_micro`` for the microbatch layout). Not
+    differentiable: callers gather detached tensors."""
     if group is None:
         return x
     host = _staged(group, x)
@@ -124,6 +131,83 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor],
             n = t.numel()
             t.copy_(flat[off:off + n].view(t.shape))
             off += n
+
+
+def _summed(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """A new tensor: ``x`` summed over the ranks of ``group``."""
+    host = _staged(group, x)
+    buf = (x.detach().cpu() if host else x.detach()).clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.device) if host else buf
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the incoming gradient over
+    the ranks (SyncBatchNorm's rule: every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g.contiguous(), ctx.group), None
+
+
+def all_reduce_sum_diff(x: torch.Tensor,
+                        group: Optional[dist.ProcessGroup] = None
+                        ) -> torch.Tensor:
+    """``x`` summed over the ranks, differentiably: the gradient of each
+    rank's ``x`` is the sum of every rank's gradient of the result. At
+    world 1 (or without a group) ``x`` itself, with no collective."""
+    if world(group) <= 1:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor,
+                   group: Optional[dist.ProcessGroup] = None
+                   ) -> torch.Tensor:
+    """``x`` summed over the ranks, outside autograd (the result has no
+    gradient). At world 1 (or without a group) ``x`` itself, with no
+    collective."""
+    if world(group) <= 1:
+        return x
+    return _summed(x, group)
+
+
+def all_gather_micro(x: torch.Tensor, accum: int,
+                     group: Optional[dist.ProcessGroup] = None
+                     ) -> torch.Tensor:
+    """The global batch in its own row order from every rank's rows of
+    it, in the microbatch layout (``local_rows``): rank r holds rows
+    i·mb + r·lb .. i·mb + (r+1)·lb of each global microbatch i, stacked
+    microbatch by microbatch. Not differentiable."""
+    if group is None:
+        return x
+    n, lb = world(group), x.shape[0] // accum
+    every = all_gather_rows(x, group)
+    return every.view(n, accum, lb, *x.shape[1:]).transpose(0, 1) \
+        .reshape(n * x.shape[0], *x.shape[1:])
+
+
+def local_rows(total: int, accum: int, index: int, count: int
+               ) -> np.ndarray:
+    """The global rows of a batch of ``total`` rows that rank ``index`` of
+    ``count`` holds in the microbatch layout: ``accum`` global
+    microbatches of mb = total / accum rows (rows i·mb .. (i+1)·mb - 1,
+    as the JAX step reshapes the batch to (accum, mb)), each split into
+    ``count`` equal runs, run r going to rank r. Microbatch i of the
+    rank is then its local rows i·lb .. (i+1)·lb - 1, lb = mb / count."""
+    if total % (accum * count):
+        raise ValueError(f"a batch of {total} does not split into "
+                         f"{accum} microbatches over {count} ranks")
+    mb = total // accum
+    lb = mb // count
+    return (np.arange(accum)[:, None] * mb + index * lb
+            + np.arange(lb)[None]).reshape(-1)
 
 
 def any_rank(flag: bool, device, group: Optional[dist.ProcessGroup] = None

@@ -2,20 +2,24 @@
 
 Counterpart of hotformerloc_tpu/tools/multihost_smoke.py. Every rank
 builds the same seeded sampler over a synthetic PNV dataset, loads only
-its rows of the global batch (``DataLoader(process_index=rank,
-process_count=world)``), and runs one train step over the process group
+its rows of the global batch in the train step's microbatch layout
+(``DataLoader(process_index=rank, process_count=world,
+micro_batches=accum)``: its share of each of the ``--accum`` global
+microbatches), and runs one train step over the process group
 (``parallel/dist.py``); ``--processes 1`` runs the whole batch in one
-process. The shards reproduce the one-process batch exactly and rank r
-runs the one-process microbatches r·accum .. (r+1)·accum - 1, so the
-loss, ``grad_norm`` and gradients agree with a ``--processes 1 --accum
-<processes · accum>`` run up to the order of fp32 sums, and the
+process. The shards reproduce the one-process batch exactly, and the
+norms' batch statistics are summed over the ranks, so the loss,
+``grad_norm``, gradients and running statistics agree with a
+``--processes 1`` run of the same ``--accum`` up to the order of fp32
+sums, for every model (``--conv_norm``, ``--pooling``), and the
 parameters after the step are bitwise equal on every rank
-(``param_checksum``); tests/test_torch_dist.py holds both.
+(``param_checksum``); tests/test_torch_dist.py and
+tests/test_torch_dist_stats.py hold both.
 
 Each rank writes ``<out>/rank<r>.json`` (loss, grad_norm, parameter
 checksum, launches of the model kernels, step seconds, peak memory) and,
-with ``--tensors``, ``<out>/rank<r>.pt`` (gradients and parameters after
-the step). Ranks start under ``torchrun``, or with ``--processes N``
+with ``--tensors``, ``<out>/rank<r>.pt`` (gradients, parameters and
+buffers after the step). Ranks start under ``torchrun``, or with ``--processes N``
 this tool starts them under torchrun (``dist.torchrun``). NCCL ranks
 take a card each; gloo ranks (``--backend gloo``) may share one.
 
@@ -65,12 +69,15 @@ def make_synthetic_dataset(path: str, n: int = 16, points: int = 256,
         pickle.dump(queries, f)
 
 
-def model_config(name: str, drop_path: Optional[float] = None):
+def model_config(name: str, drop_path: Optional[float] = None,
+                 **over):
     """``tiny_test_config`` or ``oxford_config`` (without activation
-    checkpointing) at POINTS[name], with ``drop_path`` when given."""
+    checkpointing) at POINTS[name], with ``drop_path`` when given and
+    the other fields ``over`` names."""
     from hotformerloc_torch.models.config import (oxford_config,
                                                   tiny_test_config)
-    kw = {} if drop_path is None else {"drop_path": drop_path}
+    kw = dict(over) if drop_path is None else dict(over,
+                                                   drop_path=drop_path)
     if name == "tiny":
         return tiny_test_config(num_points=POINTS[name], **kw)
     return oxford_config(num_points=POINTS[name], grad_checkpoint=False,
@@ -78,10 +85,11 @@ def model_config(name: str, drop_path: Optional[float] = None):
 
 
 def load_batch(data: str, num_points: int, batch: int, rank: int = 0,
-               world: int = 1, transforms: bool = False
+               world: int = 1, transforms: bool = False, accum: int = 1
                ) -> Dict[str, np.ndarray]:
     """Rank ``rank``'s rows of the first global batch of ``batch``
-    clouds (sampler seed 7, loader seed 3, as the JAX tool)."""
+    clouds (sampler seed 7, loader seed 3, as the JAX tool), in the
+    layout of ``accum`` microbatches."""
     from hotformerloc_torch.data.loaders import PNVPointCloudLoader
     from hotformerloc_torch.data.pipeline import DataLoader, TrainingDataset
     from hotformerloc_torch.data.sampler import BatchSampler
@@ -96,11 +104,33 @@ def load_batch(data: str, num_points: int, batch: int, rank: int = 0,
     sampler = BatchSampler(ds.queries, batch_size=batch, seed=7,
                            max_batches=1)
     loader = DataLoader(ds, sampler, num_points, seed=3,
-                        process_index=rank, process_count=world)
+                        process_index=rank, process_count=world,
+                        micro_batches=accum)
     try:
         return next(iter(loader))
     finally:
         loader.close()
+
+
+REORDERS = ("reverse", "roll")
+
+
+def reorder_micro(host: Dict[str, np.ndarray], accum: int, how: str
+                  ) -> Dict[str, np.ndarray]:
+    """The batch with the rows of each of its ``accum`` microbatches
+    reversed, or rolled by half a microbatch (``how``; mask rows and
+    columns alike): at DropPath 0 the same step in exact arithmetic, so
+    its distance from the batch as loaded is the rounding spread of the
+    step's sums."""
+    B = len(host["points"])
+    mb = B // accum
+    order = (np.arange(mb)[::-1] if how == "reverse"
+             else np.roll(np.arange(mb), mb // 2))
+    idx = np.concatenate([i * mb + order for i in range(accum)])
+    out = {k: v[idx] for k, v in host.items()}
+    for k in ("positives_mask", "negatives_mask"):
+        out[k] = out[k][:, idx]
+    return out
 
 
 def param_checksum(model: torch.nn.Module) -> str:
@@ -109,6 +139,13 @@ def param_checksum(model: torch.nn.Module) -> str:
     for p in model.parameters():
         h.update(p.detach().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def config_of(args):
+    """The model configuration the arguments name."""
+    over = {k: v for k, v in (("conv_norm", args.conv_norm),
+                              ("pooling", args.pooling)) if v is not None}
+    return model_config(args.config, args.drop_path, **over)
 
 
 def run(args, group, device) -> Tuple[Dict, Dict]:
@@ -122,14 +159,22 @@ def run(args, group, device) -> Tuple[Dict, Dict]:
 
     device = torch.device(device)
     r, n = dist.rank(group), dist.world(group)
-    cfg = model_config(args.config, args.drop_path)
+    cfg = config_of(args)
     host = load_batch(args.data, cfg.num_points, args.batch, r, n,
-                      args.transforms)
+                      args.transforms, args.accum)
+    if args.reorder:
+        host = reorder_micro(host, args.accum, args.reorder)
     model = HOTFormerLoc(cfg, device=device, dtype=DTYPES[args.dtype],
                          generator=torch.Generator().manual_seed(0))
-    if args.weights:
-        model.load_state_dict(torch.load(args.weights, map_location="cpu",
-                                         weights_only=True))
+    if args.weights:      # parameters, and buffers when the file has them
+        state = torch.load(args.weights, map_location="cpu",
+                           weights_only=True)
+        res = model.load_state_dict(state, strict=False)
+        bad = res.unexpected_keys + [
+            k for k in res.missing_keys
+            if k not in dict(model.named_buffers())]
+        if bad:
+            raise KeyError(f"{args.weights}: {bad[:8]}")
     dist.broadcast_module_(model, 0, group)
     opt = make_optimizer(model.parameters(), "adam",
                          lr_schedule(1e-3, 10, 10, warmup_epochs=2),
@@ -154,6 +199,7 @@ def run(args, group, device) -> Tuple[Dict, Dict]:
     res = {"processes": n, "rank": r, "global_batch": n * len(host["points"]),
            "rows": len(host["points"]), "accum_steps": args.accum,
            "config": args.config, "dtype": args.dtype,
+           "conv_norm": cfg.conv_norm, "pooling": cfg.pooling,
            "device": (torch.cuda.get_device_name(device) if cuda
                       else "cpu"),
            "backend": None if group is None else
@@ -168,7 +214,9 @@ def run(args, group, device) -> Tuple[Dict, Dict]:
     tensors = {"grads": {k: p.grad.detach().cpu()
                          for k, p in model.named_parameters()},
                "params": {k: p.detach().cpu()
-                          for k, p in model.named_parameters()}}
+                          for k, p in model.named_parameters()},
+               "buffers": {k: b.detach().cpu()
+                           for k, b in model.named_buffers()}}
     return res, tensors
 
 
@@ -185,8 +233,15 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--config", choices=tuple(POINTS), default="tiny")
     ap.add_argument("--batch", type=int, default=8, help="global batch")
     ap.add_argument("--accum", type=int, default=2,
-                    help="microbatches per rank")
+                    help="global microbatches (each split over the ranks)")
     ap.add_argument("--drop_path", type=float, default=None)
+    ap.add_argument("--conv_norm", default=None,
+                    help="layernorm (the configs'), batchnorm or powernorm")
+    ap.add_argument("--pooling", default=None,
+                    help="pooling head (default: the config's)")
+    ap.add_argument("--reorder", choices=REORDERS, default=None,
+                    help="one process: reverse or roll the rows within "
+                         "each microbatch (reorder_micro)")
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
     ap.add_argument("--device", default="cuda",
                     help="cuda (a card per NCCL rank) or cpu (gloo)")

@@ -4,10 +4,11 @@ world sizes 1..N with a fixed batch per rank.
 Counterpart of hotformerloc_tpu/tools/scaling_harness.py. For each world
 size w in 1, 2, 4, ... up to ``--max_world`` it starts w ranks under
 torchrun (``dist.torchrun``: NCCL and a card each on the card, gloo on
-the CPU). Every rank runs ``--accum`` microbatches of
-``--per_rank_batch`` clouds, its rows of a global batch of w ·
-per_rank_batch · accum synthetic clouds (pairs of one uniform cloud;
-``bench.py``'s kind), runs one warm-up step and times ``--iters`` more (host clock, ending in
+the CPU). The step runs ``--accum`` global microbatches of w ·
+``--per_rank_batch`` clouds, each rank holding per_rank_batch rows of
+each (``dist.local_rows``) of a global batch of w · per_rank_batch ·
+accum synthetic clouds (pairs of one uniform cloud; ``bench.py``'s
+kind); every rank runs one warm-up step and times ``--iters`` more (host clock, ending in
 ``torch.cuda.synchronize``), and rank 0 writes the world's line: step
 ms, submaps/s and the efficiency, submaps/s over w times the 1-rank
 rate. One line per world size goes to stdout and ``<out>/scaling.jsonl``.
@@ -35,17 +36,16 @@ TOOL = "hotformerloc_torch.tools.scaling_harness"
 TIMEOUT = 1800                 # seconds one world size may take
 
 
-def synthetic_rows(B: int, num_points: int, rank: int, rows: int
+def synthetic_rows(B: int, num_points: int, sl: np.ndarray
                    ) -> Dict[str, np.ndarray]:
-    """Rows rank·rows .. (rank+1)·rows of a global batch of B clouds
+    """Rows ``sl`` (global row indices) of a global batch of B clouds
     (B/2 uniform clouds, each twice; masks of the pairs)."""
     rng = np.random.default_rng(0)
     base = rng.uniform(-0.9, 0.9, (B // 2, num_points, 3)).astype(np.float32)
     groups = np.repeat(np.arange(B // 2), 2)
-    sl = slice(rank * rows, (rank + 1) * rows)
     same = groups[sl, None] == groups[None]
     return {"points": np.repeat(base, 2, axis=0)[sl],
-            "pmask": np.ones((rows, num_points), bool),
+            "pmask": np.ones((len(sl), num_points), bool),
             "positives_mask": same & (np.arange(B)[sl, None]
                                       != np.arange(B)[None]),
             "negatives_mask": ~same}
@@ -76,7 +76,8 @@ def bench_rank(args, group, device) -> Dict:
         model, opt, make_loss("truncatedsmoothap", positives_per_query=1),
         StepConfig(accum_steps=args.accum), group)
     batch = {k: torch.from_numpy(v).to(device) for k, v in
-             synthetic_rows(B, cfg.num_points, r, rows).items()}
+             synthetic_rows(B, cfg.num_points, dist.local_rows(
+                 B, args.accum, r, w)).items()}
 
     def sync():
         if device.type == "cuda":

@@ -29,19 +29,26 @@ as JAX's teacher reads ``state.model_state``. A batch may carry
 'normals' (B, P, 3) for the 'N' input feature (the JAX step has no such
 key).
 
-Over a process group of n ranks (``parallel/dist.py``) each rank holds
-rows r·b .. (r+1)·b of the global batch of B = n·b clouds and the same
-rows of the (B, B) masks. It runs its accum_steps microbatches, the
-single process's global microbatches r·accum_steps + i (their DropPath
-masks too); stage 2 gathers every rank's embeddings and mask rows, so
-each rank computes the same global loss and its gradient; stage 3
-backpropagates the rank's own rows of it; the parameter gradients are
-summed over the ranks once, after the last microbatch. The step then
-equals one process's step over the global batch with n·accum_steps
-microbatches, up to the order of the fp32 sums. Models with running
-statistics are refused there: JAX's batch statistics are global over
-the sharded microbatch, and the ranks here would each compute their
-own.
+Over a process group of n ranks (``parallel/dist.py``) the layout is
+the JAX step's under its mesh: global microbatch i is rows
+i·mb .. (i+1)·mb - 1 of the global batch of B clouds (mb = B /
+accum_steps), and rank r holds its 1/n share of each, rows
+i·mb + r·lb .. i·mb + (r+1)·lb - 1 (lb = mb / n; ``dist.local_rows``),
+stacked microbatch by microbatch, with the same rows of the (B, B)
+masks. Its microbatch i is then its local rows i·lb .. (i+1)·lb - 1.
+The DropPath masks are drawn per global microbatch and each rank takes
+its rows of them; the norms sum their batch statistics over the ranks
+(``HOTFormerLoc.set_stats_group``), so every rank stages the statistics
+of the whole global microbatch. Stage 2 gathers every rank's
+embeddings and mask rows back into global order
+(``dist.all_gather_micro``), so each rank computes the same global loss
+and its gradient; stage 3 backpropagates the rank's own rows of it (the
+norms' sums carry their gradient across the ranks); the parameter
+gradients are summed over the ranks once, after the last microbatch.
+At world n the step then equals one process's step over the global
+batch with the same accum_steps, for every model, up to the order of
+the fp32 sums. Dropout (rate > 0) is the exception: its masks are drawn
+per rank, so the two agree in distribution, not in bits.
 """
 from __future__ import annotations
 
@@ -147,9 +154,11 @@ class TrainStep:
     step's gradient.
 
     ``group``: the process group of data parallelism (None: one
-    process). Each rank then passes its rows of the global batch, its
-    (b, B) rows of the masks, and the same seed; stats and parameters
-    are the same on every rank, 'octree_overflow' summed over them."""
+    process). Each rank then passes its rows of the global batch in the
+    microbatch layout (``dist.local_rows(B, accum_steps, rank, world)``),
+    the same rows of the (B, B) masks, and the same seed; stats,
+    parameters and running statistics are the same on every rank,
+    'octree_overflow' summed over them."""
 
     def __init__(self, model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable, cfg: StepConfig = StepConfig(),
@@ -157,11 +166,7 @@ class TrainStep:
         self.model, self.optimizer, self.loss_fn, self.cfg = (
             model, optimizer, loss_fn, cfg)
         self.group = group
-        if dist.world(group) > 1 and model.stats_modules():
-            raise NotImplementedError(
-                f"conv_norm={model.cfg.conv_norm!r} / pooling="
-                f"{model.cfg.pooling!r} over {dist.world(group)} ranks: "
-                "the batch statistics are not all-reduced yet")
+        model.set_stats_group(group)
         self.params = [p for p in model.parameters() if p.requires_grad]
         ema = None          # MESA needs the EMA teacher, as in JAX
         if cfg.use_ema:
@@ -177,11 +182,16 @@ class TrainStep:
                 e.copy_(b)          # the student's running statistics
             return ema(points, pmask, plan=plan, normals=normals)["global"]
 
-    def _draws(self, batch: int, micro: int):
-        """Microbatch ``micro``'s DropPath masks and dropout seed."""
+    def _draws(self, lb: int, micro: int):
+        """Global microbatch ``micro``'s DropPath masks, this rank's
+        ``lb`` columns of them (rows of its microbatch), and the rank's
+        dropout seed."""
+        r, n = dist.rank(self.group), dist.world(self.group)
         g = drop_generator(self.seed, micro)
-        masks = self.model.draw_drop_masks(batch, g)
-        return masks, int(torch.randint(2 ** 62, (), generator=g))
+        masks = self.model.draw_drop_masks(n * lb, g)
+        seed = int(torch.randint(2 ** 62, (), generator=g))
+        return (masks[:, r * lb:(r + 1) * lb],
+                (seed + r * 1_000_003) % (2 ** 62))
 
     def __call__(self, batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         self.model.train()
@@ -193,16 +203,21 @@ class TrainStep:
             stats = self._multistage(batch, seed)
         return self._finish(stats)
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows from every rank's rows ``x``."""
+        return dist.all_gather_micro(x, max(self.cfg.accum_steps, 1),
+                                     self.group)
+
     def _gather_masks(self, batch: Batch):
         """The global (B, B) masks from every rank's (b, B) rows."""
-        return (dist.all_gather_rows(batch["positives_mask"], self.group),
-                dist.all_gather_rows(batch["negatives_mask"], self.group))
+        return (self._gather(batch["positives_mask"]),
+                self._gather(batch["negatives_mask"]))
 
     def _single_pass(self, batch: Batch, seed: int):
         m, g = self.model, self.group
         pts, msk, nrm = batch["points"], batch["pmask"], batch.get("normals")
         b, r = pts.shape[0], dist.rank(g)
-        masks, dseed = self._draws(b, r)
+        masks, dseed = self._draws(b, 0)
         out = m(pts, msk, drop_masks=masks, normals=nrm, dropout_seed=dseed)
         emb = out["global"]
         if g is not None:
@@ -233,7 +248,7 @@ class TrainStep:
             plans = [build_model_plan(
                 m.cfg, pts[sl], msk[sl],
                 normals=None if nrm is None else nrm[sl]) for sl in chunks]
-        draws = [self._draws(mb, r * A + i) for i in range(A)]
+        draws = [self._draws(mb, i) for i in range(A)]
 
         # Stage 1: embeddings without parameter gradients.
         embs, t_embs, ovf = [], [], []
@@ -247,17 +262,17 @@ class TrainStep:
                 if t is not None:
                     t_embs.append(t)
         staged = m.staged_stats()      # the last microbatch's update
-        emb = dist.all_gather_rows(torch.cat(embs), g).detach() \
-            .requires_grad_(True)
+        emb = self._gather(torch.cat(embs)).detach().requires_grad_(True)
 
         # Stage 2: loss over the full batch, gradient w.r.t. embeddings.
         with torch.enable_grad():
             loss, stats = self.loss_fn(emb, *self._gather_masks(batch))
             if t_embs:
                 loss = loss + self.cfg.mesa * kd_loss(
-                    emb, dist.all_gather_rows(torch.cat(t_embs), g))
+                    emb, self._gather(torch.cat(t_embs)))
             (g_emb,) = torch.autograd.grad(loss, emb)
-        g_emb = g_emb[r * b:(r + 1) * b]      # this rank's rows
+        n = dist.world(g)                     # this rank's rows
+        g_emb = g_emb.view(A, n, mb, -1)[:, r].reshape(b, -1)
         stats = dict(stats, octree_overflow=torch.stack(ovf).sum(),
                      band_overflow=plans[0].band_overflow())
 
@@ -302,8 +317,8 @@ def make_train_step(model: HOTFormerLoc, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable, cfg: StepConfig = StepConfig(),
                     group=None) -> TrainStep:
     """The train step: single pass for accum_steps <= 1, else the
-    multistage step; over ``group`` when given (data parallelism,
-    accum_steps microbatches per rank). The optimizer comes from
+    multistage step; over ``group`` when given (data parallelism:
+    accum_steps global microbatches, each split over the ranks). The optimizer comes from
     ``make_optimizer`` (it carries the learning-rate schedule)."""
     return TrainStep(model, optimizer, loss_fn, cfg, group)
 

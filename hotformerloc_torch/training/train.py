@@ -13,9 +13,13 @@ with ``--device cpu``):
   torchrun --nproc_per_node 4 -m hotformerloc_torch.training.train \
       --config configs/oxford.txt --model_config configs/oxford_model.txt
 
-``batch_size`` stays the global batch; ``batch_split_size`` is the
-microbatch one card holds, so each rank runs
-``batch_size / nproc / batch_split_size`` microbatches per step.
+``batch_size`` stays the global batch and ``batch_split_size`` the
+global microbatch, as in the JAX trainer: every step runs
+``batch_size / batch_split_size`` microbatches at any nproc, and each
+card holds ``batch_split_size / nproc`` rows of each. Models with batch
+statistics (``conv_norm = batchnorm`` or ``powernorm``, the
+``BatchNorm`` of the GeM heads) sum them over the ranks, so they are
+the global microbatch's.
 """
 from __future__ import annotations
 

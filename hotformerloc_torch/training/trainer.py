@@ -13,9 +13,12 @@ over a process group (data parallelism, ``parallel/dist.py``):
     side file (``wandb_run_id``, ``sampler_batch_size``);
   * the loader yields numpy batches, which the trainer moves to the
     model's device;
-  * over a group of n ranks each rank loads its rows of every global
-    batch and runs ``batch_size / n / batch_split_size`` microbatches of
-    the step; only rank 0 writes the log, the checkpoints and the wandb
+  * over a group of n ranks the step still runs ``batch_size /
+    batch_split_size`` global microbatches, as the JAX trainer does:
+    ``batch_split_size`` is the global microbatch, each rank loads its
+    ``batch_split_size / n`` rows of each (the JAX step's layout under
+    its mesh, ``parallel.dist.local_rows``); only rank 0 writes the log,
+    the checkpoints and the wandb
     run, and every rank evaluates (retrieval sharded over the ranks), as
     the JAX trainer evaluates on every host.
 """
@@ -197,11 +200,16 @@ class Trainer:
             self.train_ds.queries, params.batch_size,
             params.batch_size_limit, params.batch_expansion_rate,
             max_batches=2 if params.debug else None, seed=seed)
+        # batch_split_size is the global microbatch, as in the JAX
+        # trainer; each rank holds batch_split_size / world of it
+        accum_steps = (max(params.batch_size // params.batch_split_size, 1)
+                       if params.batch_split_size else 1)
         self.train_loader = DataLoader(self.train_ds, self.train_sampler,
                                        cfg.num_points, seed=seed,
                                        process_index=self.rank,
                                        process_count=self.world,
-                                       num_workers=params.num_workers)
+                                       num_workers=params.num_workers,
+                                       micro_batches=accum_steps)
         self.val_loader = None
         if params.validation and params.val_file:
             vt = make_val_transform(params.normalize_points,
@@ -232,10 +240,6 @@ class Trainer:
                                         params.optimizer, sched,
                                         params.weight_decay)
         self.loss_fn = make_loss(params.loss, **loss_kwargs(params))
-        # batch_split_size is what one card holds: per rank
-        accum_steps = (max(params.batch_size // self.world
-                           // params.batch_split_size, 1)
-                       if params.batch_split_size else 1)
         self.use_ema = params.mesa > 0.0
         self.step_cfg_nomesa = StepConfig(accum_steps=accum_steps,
                                           use_ema=self.use_ema, mesa=0.0)

@@ -140,6 +140,44 @@ def device_ms(fn: Callable, *args, iters: int = 10, **kw) -> float:
     return us / iters / 1e3
 
 
+def wall_and_device_ms(fn: Callable, *args, iters: int = 5,
+                       device_iters: int = 2, **kw) -> Dict:
+    """Where one call of ``fn`` spends its time. After a warm-up call,
+    ``iters`` calls run back to back between two card synchronisations:
+    ``wall_ms`` is the host clock per call, ``event_ms`` the CUDA events'
+    time per call on the current stream (first launch to last
+    completion, idle gaps included). Then ``device_ms`` (``device_ms``
+    over ``device_iters`` calls) sums the kernels' own time, so
+    ``host_ms`` = wall_ms - device_ms is the time the card waited for the
+    host, and ``idle_share`` = host_ms / wall_ms. When the warm-up
+    result holds no CUDA tensor the call ran on the CPU: the host clock
+    alone, and None for the device figures (``clock`` says which)."""
+    out = fn(*args, **kw)
+    cuda = any(t.is_cuda for t in _tensors(out))
+    block(out)
+    res = {"iters": iters, "clock": "cuda_events" if cuda else "host",
+           "event_ms": None, "device_ms": None, "host_ms": None,
+           "idle_share": None}
+    if cuda:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args, **kw)
+    if cuda:
+        e.record()
+        torch.cuda.synchronize()
+    res["wall_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    if cuda:
+        res["event_ms"] = s.elapsed_time(e) / iters
+        dev = device_ms(fn, *args, iters=device_iters, **kw)
+        res.update(device_ms=dev, host_ms=res["wall_ms"] - dev,
+                   idle_share=max(0.0, 1.0 - dev / res["wall_ms"]))
+    return res
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block with torch.profiler (CPU, and CUDA where there

@@ -3,18 +3,19 @@ gloo, ranks started by torchrun (``dist.torchrun``; modelled on
 tests/test_multihost.py), every run with a timeout.
 
 1. tools/multihost_smoke at 2 ranks (global batch 8, DropPath 0.5,
-   augmentations on) equals it at 1 process with twice the microbatches
-   (so the shards reproduce the batch and the masks): the multistage
-   step (accum 2 per rank against accum 4) and the single pass (accum 1
-   per rank, its own rows spliced between the gathered ones, against
-   accum 2); loss rtol 1e-6, every gradient |dg| <= 1e-4 |g| + 1e-7
-   (tensor norms), and both ranks' parameters bitwise equal after the
-   step;
-2. the same 2-rank step with the JAX weights (params_from_jax) and
-   DropPath 0 equals the JAX single-device multistage step (accum 4) on
-   the same global batch, at tests/test_torch_train.py's bar: loss rtol
-   1e-5, |dg| <= 1e-3 |g_jax| + 1e-8. JAX's gradients are read off an
-   SGD step of rate 1e4: g = (p0 - p1) / 1e4;
+   augmentations on) equals it at 1 process with the same accum_steps
+   (each rank holds its half of every global microbatch, JAX's layout,
+   so the shards reproduce the batch, the masks and the DropPath
+   draws): the multistage step (accum 2) and the single pass (accum 1,
+   its own rows spliced between the gathered ones); loss rtol 1e-6,
+   every gradient |dg| <= 1e-4 |g| + 1e-7 (tensor norms), and both
+   ranks' parameters bitwise equal after the step;
+2. the 2-rank step at accum 4 (one row of each 2-row global microbatch
+   per rank) with the JAX weights (params_from_jax) and DropPath 0
+   equals the JAX single-device multistage step (accum 4) on the same
+   global batch, at tests/test_torch_train.py's bar: loss rtol 1e-5,
+   |dg| <= 1e-3 |g_jax| + 1e-8. JAX's gradients are read off an SGD step
+   of rate 1e4: g = (p0 - p1) / 1e4;
 3. retrieval_topk sharded over 2 ranks, D = 37, k = 25 (shard 19 < k),
    equals the one-process port and JAX's retrieval_topk, on one device
    and sharded over a 2-device mesh: indices exactly, distances 1e-5;
@@ -118,7 +119,7 @@ def test_two_rank_step_equals_one_process(tmp_path, accum):
         two = ex.submit(_tool, data, tmp_path / "two", 2, "--accum",
                         str(accum), *common)
         one = ex.submit(_tool, data, tmp_path / "one", 1, "--accum",
-                        str(2 * accum), *common)
+                        str(accum), *common)
         (r2, t2), (r1, t1) = two.result(), one.result()
     assert [r["rows"] for r in r2] == [4, 4] and r1[0]["rows"] == 8
     assert r2[0]["backend"] == "gloo" and r1[0]["backend"] is None
@@ -149,7 +150,7 @@ def test_two_rank_step_equals_jax_multistage_step(tmp_path):
     weights = str(tmp_path / "jax_weights.pt")
     torch.save(params_from_jax(p0, tm), weights)
     with ThreadPoolExecutor(1) as ex:
-        two = ex.submit(_tool, data, tmp_path / "two", 2, "--accum", "2",
+        two = ex.submit(_tool, data, tmp_path / "two", 2, "--accum", "4",
                         "--batch", "8", "--drop_path", "0", "--weights",
                         weights)
         step = j_train_step(jm, tx, jl.make_loss("truncatedsmoothap",

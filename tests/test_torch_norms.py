@@ -476,12 +476,26 @@ def test_mesa_teacher_reads_the_students_running_stats():
 
 
 def test_stats_refused_over_ranks(monkeypatch):
+    """No longer refused: over a group of 2 the step hands the group to
+    every norm, which reduces over it in train mode only (eval mode and
+    a step without a group never reduce; tests/test_torch_dist_stats.py
+    runs the ranks)."""
     from hotformerloc_torch.parallel import dist
     monkeypatch.setattr(dist, "world", lambda group=None: 2)
-    m = TModel(tcfg.tiny_test_config(conv_norm="batchnorm"), device="cpu")
+    m = TModel(tcfg.tiny_test_config(conv_norm="batchnorm",
+                                     pooling="PyramidOctGeMgc"),
+               device="cpu")
     opt = torch.optim.SGD(m.parameters(), lr=LR)
-    with pytest.raises(NotImplementedError, match="all-reduced"):
-        make_train_step(m, opt, None, group=object())
+    group = object()
+    step = make_train_step(m, opt, None, group=group)
+    mods = m.stats_modules()
+    assert step.group is group and len(mods) > 1
+    assert all(mod.group is group for mod in mods)
+    assert all(mod.reduce_group() is None for mod in mods)     # eval
+    m.train()
+    assert all(mod.reduce_group() is group for mod in mods)
+    make_train_step(m, opt, None)
+    assert all(mod.reduce_group() is None for mod in mods)
 
 
 def test_dropout_masks_repeat_by_seed():

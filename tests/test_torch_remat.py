@@ -179,3 +179,35 @@ def test_unknown_remat_policy_raises():
     with pytest.raises(ValueError, match="remat_policy"):
         tcfg.tiny_test_config(remat_policy="save_everything")
     assert tcfg.ModelConfig().remat_policy == "save_hot"
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_xcpe_conv_kept_under_save_hot(monkeypatch, policy):
+    """A tiny xCPE model (every CPE a full conv, K5 through the op
+    ``hotformerloc::octree_conv``): the plain K5 forwards that one
+    checkpointed backward runs again are counted, one per block under
+    None and 'save_attn', none under 'save_hot', which keeps the op's
+    output (JAX's "cpe_out"); the gradients equal those without
+    checkpointing, bitwise."""
+    cfg = tcfg.tiny_test_config(xcpe=True, drop_path=0.0, num_points=P)
+    rng = np.random.default_rng(6)
+    pts = torch.from_numpy(rng.uniform(-0.9, 0.9, (2, P, 3)).astype(
+        np.float32))
+    pmask = torch.ones(2, P, dtype=torch.bool)
+    base = HOTFormerLoc(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(7))
+    proj = torch.from_numpy(rng.standard_normal((2, cfg.output_dim)).astype(
+        np.float32))
+    case = (cfg, base.state_dict(), pts, pmask, None, proj)
+    g_ref = _run(case, False, None)[0]
+    k5 = _Counting(tconv, "octree_conv")
+    monkeypatch.setattr(kconv, "plain", k5)
+
+    def reset():
+        k5.calls = 0
+    g, _ = _run(case, True, policy, reset)
+    sites = cfg.num_blocks[0] + cfg.num_blocks[-1] * cfg.num_pyramid_levels
+    assert k5.calls == (0 if policy == "save_hot" else sites)
+    assert set(g) == set(g_ref)
+    for n in g_ref:
+        assert torch.equal(g[n], g_ref[n]), n
