@@ -66,6 +66,17 @@ script exits non-zero without the final line:
    take the plan's tap lists, as the train step gives them; K6 is timed
    on both bodies as K5 is, and K4 (one body) and K6 give device_ms and
    the surface-like microbatch's surf_* rows as K5 does.
+5b. attn_ab: tools/pallas_ab.py's three cases (the Oxford microbatch-8
+   attention shapes: H-OSA 704 x 49 x 256, 16 heads, one relay slot;
+   OctFormer 704 x 48 x 128, 8 heads, dilation 1 and 4), the port's
+   WindowAttention module (qkv and proj included) in bf16 on the kernel
+   route against the einsum route (the one attention dropout takes):
+   forward and forward+backward CUDA-event ms over 30 calls, the launch
+   counters zeroed before each route and read after it (the kernel route
+   launches K1 and K2, all on the tensor-core bodies; the einsum route
+   neither), and, under the loss over valid query rows, the output and the gradient of
+   x and of every parameter (the RPE table's included) within the bf16
+   bar relative to the einsum route's own largest value.
 6. train: the Oxford multistage step (make_train_step, batch 32 as 4
    microbatches of 8, truncatedsmoothap, Adam with L2 weight decay 1e-4
    on bench.py's schedule, DropPath 0.5). At fp32 with TF32 off, one
@@ -86,8 +97,12 @@ script exits non-zero without the final line:
    finite.
 6b. entry: the port's own CLIs on the card. A synthetic PNV-format
    dataset under .chip_tmp/entry (160 places x 2 passes of surface-like
-   4096-point clouds with sigma 0.01 noise, its training-queries pickle,
-   and the four Oxford evaluation splits of 2 runs x 32 places);
+   4096-point clouds with sigma 0.01 noise, and the four Oxford
+   evaluation splits of 2 runs x 32 places inside each split's test
+   squares), laid out with the PNV locations CSVs; its training-queries
+   pickle and evaluation sets come from tools/pnv_tuples.py
+   (construct_query_dict, construct_query_and_database_sets) and must
+   equal the ground truth the clouds were written with;
    hotformerloc_torch.training.train's main on configs/oxford.txt's
    settings with that dataset, batch_size 256 as microbatches of 128
    (the shipped batch_split_size), 2 epochs, eval_freq and save_freq 1,
@@ -235,6 +250,15 @@ script exits non-zero without the final line:
    calls of scatter_add, index_add and gather's backward; the down-convs
    differentiate no gather (their backward reads the inverse tables), so
    the step may hold one gather_backward (the loss's top-k) and no more.
+6h. prep (host only): the dataset-preparation CLIs, each in a process
+   of its own, on synthetic raw trees under .chip_tmp/prep, each checked
+   against the ground truth its tree was built with, and timed:
+   fix_broken_timestamps, postprocess_submaps (CSF ground removal and
+   voxel downsampling on 2 workers), wildplaces_tuples train and
+   test-sets, cswildplaces_tuples, cscampus3d_convert,
+   ground_aerial_overlap, and loader_bench at 0, 2 and 4 workers on 256
+   clouds (submaps/s); the native library loaded must be the port's own
+   build (hotformerloc_torch/build/libpointops.so).
 8c. tools, in a process of their own (``chip_smoke.py --tools-worker``:
    torch.profiler returns windows without device events after this
    process's many earlier ones): bisect_step's six stages at Oxford
@@ -251,7 +275,8 @@ script exits non-zero without the final line:
    rows, each kernel's launches in the entry phase's train run as
    launches_entry, and in the dp phase's steps per model as launches_dp
    ((a)'s bf16 step) and launches_dp_two_ranks ((b)'s ranks) and
-   in the tools phase as launches_tools; then the twelve probe
+   in the tools phase as launches_tools, K1's and K2's in the attn_ab
+   phase's kernel routes as launches_attn_ab; then the twelve probe
    kernels, per call at the tools' shapes, launches per run of the
    tools; T2's row adds its cluster plan (blocks per cluster, channel
    slice, rows per block, clusters per sample = neighbour-table reads
@@ -1448,18 +1473,55 @@ MODEL_KERNELS = ("window_attn", "window_attn_bwd", "octree_dwconv",
                  "octree_dwconv_bwd", "octree_conv", "octree_conv_bwd")
 
 
+# entry phase, evaluation splits: (runs folder, cloud folder, locations
+# CSV) as the PNV test sets lay them out (pnv_tuples.generate_test_sets)
+ENTRY_EVAL_LAYOUT = {
+    "oxford": ("oxford/", "/pointcloud_20m/", "pointcloud_locations_20m.csv"),
+    **{s: ("inhouse_datasets/", "/pointcloud_25m_25/",
+           "pointcloud_centroids_25.csv")
+       for s in ("university", "residential", "business")}}
+ENTRY_GRID = (-100.0, -60.0, -20.0, 20.0, 60.0, 100.0)   # m about a square
+ENTRY_BUSINESS_CENTRE = (5735000.0, 620000.0)
+
+
+def write_locations(path, rows):
+    """A PNV locations CSV: (timestamp, northing, easting) rows."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("timestamp,northing,easting\n")
+        for ts, n, e in rows:
+            f.write(f"{ts},{n!r},{e!r}\n")
+
+
+def entry_eval_place(split, j):
+    """Place j of an evaluation split: on a 40 m grid inside the split's
+    first test square (P_DICT, +-150 m), so that only the same place in
+    the other run lies within the 25 m threshold; business, which has no
+    squares, about a fixed centre."""
+    from hotformerloc_torch.tools import pnv_tuples
+    c = (pnv_tuples.P_DICT[split] or [ENTRY_BUSINESS_CENTRE])[0]
+    g = len(ENTRY_GRID)
+    return c[0] + ENTRY_GRID[j % g], c[1] + ENTRY_GRID[j // g]
+
+
 def write_entry_dataset(root, n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL,
                         seed=7):
-    """A PNV-format dataset under ``root``: n_locs places x 2 passes of
-    4096-point surface-like clouds (each pass the place's cloud plus
-    N(0, 0.01) noise, float64 .bin), a training-queries pickle (a
-    cloud's positive is its place's other pass), and the four Oxford
-    evaluation splits, each 2 runs of the same n_eval places (a query's
-    true neighbour is its place in the other run, 100 m from the next
-    place)."""
+    """A PNV-format dataset under ``root``, laid out as the PNV tools
+    read it, and its tuples from the port's ``tools/pnv_tuples.py``:
+    n_locs places x 2 passes of 4096-point surface-like clouds (each pass
+    the place's cloud plus N(0, 0.01) noise, float64 .bin; pass k in
+    oxford/run{k}, places 100 m apart), the training-queries pickle from
+    ``construct_query_dict`` (a cloud's positive is its place's other
+    pass), and the four evaluation splits from
+    ``construct_query_and_database_sets``, each 2 runs of the same n_eval
+    places (a query's true neighbour is its place in the other run, 40 m
+    from the next place). Asserts that the tool's tuples equal this
+    ground truth, built here by hand."""
     import pickle
 
-    from hotformerloc_torch.data.tuples import TrainingTuple
+    from hotformerloc_torch.data.tuples import load_pickle_compat
+    from hotformerloc_torch.tools import pnv_tuples as pnv
+    assert n_eval <= len(ENTRY_GRID) ** 2
     rng = np.random.default_rng(seed)
 
     def write(rel, base):
@@ -1468,34 +1530,660 @@ def write_entry_dataset(root, n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL,
         (base + rng.normal(0, 0.01, base.shape)).astype(np.float64) \
             .tofile(path)
 
-    queries = {}
+    runs = ("run0", "run1")
+    rows = {r: [] for r in runs}
+    want = {}                   # rel path -> (place, positive's rel path)
     for loc in range(n_locs):
         base = surface_cloud(rng)
-        for k in range(2):
-            i, sib = 2 * loc + k, 2 * loc + 1 - k
-            write(f"train/{i:04d}.bin", base)
-            queries[i] = TrainingTuple(
-                i, i, f"train/{i:04d}.bin", np.array([sib]),
-                np.array(sorted([i, sib])), np.array([100.0 * loc, 0.0]))
-    with open(os.path.join(root, "training_queries.pickle"), "wb") as f:
-        pickle.dump(queries, f)
+        for k, run in enumerate(runs):
+            ts = str(2 * loc + k)
+            rel = pnv.RUNS_FOLDER + run + pnv.POINTCLOUD_FOLS + ts + ".bin"
+            write(rel, base)
+            rows[run].append((ts, 100.0 * loc, 0.0))
+            sib = str(2 * loc + 1 - k)
+            want[rel] = (loc, pnv.RUNS_FOLDER + runs[1 - k]
+                         + pnv.POINTCLOUD_FOLS + sib + ".bin")
+    entries = []
+    for run in runs:
+        csv = os.path.join(root, pnv.RUNS_FOLDER, run, pnv.FILENAME)
+        write_locations(csv, rows[run])
+        entries += [(pnv.RUNS_FOLDER + run + pnv.POINTCLOUD_FOLS + ts
+                     + ".bin", n, e) for ts, n, e in pnv._read_locations(csv)]
+    pnv.construct_query_dict(entries, root, "training_queries.pickle",
+                             ind_nn_r=10.0)
+    got = load_pickle_compat(os.path.join(root, "training_queries.pickle"))
+    ids = {t.rel_scan_filepath: i for i, t in got.items()}
+    for i, t in got.items():
+        loc, sib = want[t.rel_scan_filepath]
+        pos = np.array([ids[sib]])
+        if not (t.id == i and list(t.positives) == list(pos)
+                and list(t.non_negatives) == sorted([i, ids[sib]])
+                and list(t.position) == [100.0 * loc, 0.0]
+                and t.timestamp == int(os.path.basename(
+                    t.rel_scan_filepath)[:-4])):
+            raise AssertionError(f"pnv_tuples training tuple {i}: "
+                                 f"{vars(t)}")
+    if len(got) != 2 * n_locs:
+        raise AssertionError(f"{len(got)} training tuples")
+
     for split in ENTRY_SPLITS:
+        runs_folder, fols, fname = ENTRY_EVAL_LAYOUT[split]
+        folders = [f"{split}_run{r}" for r in range(2)]
         bases = [surface_cloud(rng) for _ in range(n_eval)]
         sets = {"database": [], "query": []}
-        for run in range(2):
-            db, q = {}, {}
+        for run, folder in enumerate(folders):
+            db, q, locs = {}, {}, []
             for j, base in enumerate(bases):
-                rel = f"{split}/run{run}_{j:03d}.bin"
+                ts = str(1000 * run + j)
+                rel = runs_folder + folder + fols + ts + ".bin"
                 write(rel, base)
-                db[j] = {"query": rel, "northing": 100.0 * j,
-                         "easting": 0.0}
+                n, e = entry_eval_place(split, j)
+                locs.append((ts, n, e))
+                db[j] = {"query": rel, "northing": n, "easting": e}
                 q[j] = {**db[j], 1 - run: [j]}
+            write_locations(os.path.join(root, runs_folder, folder, fname),
+                            locs)
             sets["database"].append(db)
             sets["query"].append(q)
+        pnv.construct_query_and_database_sets(
+            root, runs_folder, folders, fols, fname, pnv.P_DICT[split],
+            split)
         for kind, s in sets.items():
             with open(os.path.join(
-                    root, f"{split}_evaluation_{kind}.pickle"), "wb") as f:
-                pickle.dump(s, f)
+                    root, f"{split}_evaluation_{kind}.pickle"), "rb") as f:
+                if pickle.load(f) != s:
+                    raise AssertionError(f"pnv_tuples {split} {kind} sets "
+                                         "differ from the ground truth")
+
+
+# ---- prep phase: the dataset-preparation tools on synthetic raw trees --
+# Each tree's ground truth is known by construction: places lie >= 75 m
+# apart (every tool's radius is <= 60 m), so a radius query around a row
+# finds exactly the rows of its own place.
+WILD_FORESTS = ("Venman", "Karawatha")
+# Wild-Places places (easting, northing) by the split the tools must give
+# them: inside a test polygon, at an exclusion circle's centre, or train
+# (wildplaces_tuples.POLY_* / EXCLUDE_*)
+WILD_RAW_PLACES = {
+    "Venman": (("test", 0.0, 0.0), ("test", 60.0, -80.0),
+               ("buffer", -63.0, 40.0), ("train", 300.0, 300.0),
+               ("train", 400.0, 300.0), ("train", 500.0, 300.0)),
+    "Karawatha": (("test", 0.0, -100.0), ("test", -150.0, 500.0),
+                  ("buffer", -216.0, 606.0), ("train", 600.0, 600.0),
+                  ("train", 700.0, 600.0), ("train", 800.0, 600.0))}
+WILD_RAW_RUNS = 3
+WILD_BROKEN = (1, 4)         # rows whose pose timestamp is truncated
+# CS-Wild-Places places in UTM: (split, easting, northing, has an aerial
+# submap); test places inside the splits' first test polygons
+# (cswildplaces_tuples.POLY_DICT)
+CSWILD_RAW_PLACES = {
+    "Karawatha": (("test", 507100.0, 6942550.0, True),
+                  ("test", 507350.0, 6942550.0, True),
+                  ("train", 507100.0, 6942800.0, True),
+                  ("train", 507250.0, 6942800.0, True),
+                  ("train", 507400.0, 6942800.0, True),
+                  ("train", 507600.0, 6942800.0, False)),
+    "Venman": (("test", 519800.0, 6943700.0, True),
+               ("test", 519400.0, 6943700.0, True),
+               ("train", 519400.0, 6944000.0, True),
+               ("train", 519550.0, 6944000.0, True),
+               ("train", 519700.0, 6944000.0, True),
+               ("train", 519850.0, 6944000.0, False))}
+CSWILD_FOLDERS = ("aerial", "ground_run1", "ground_run2")
+CSWILD_ARGS = {"pos_thresh": 15.0, "neg_thresh": 60.0, "buffer_thresh": 30.0,
+               "eval_thresh": 15.0}
+PREP_VOXEL = 0.8
+PREP_MIN_POINTS = 100
+PREP_CELLS = 150             # occupied voxels of a kept submap's objects
+PREP_LOADER_CLOUDS = 256
+PREP_LOADER_WORKERS = "0,2,4"
+
+
+def same(a, b):
+    """Equal nested dicts / lists of numbers, strings, numpy arrays (values
+    and dtype kind) and tuple records (their attributes)."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.shape == b.shape and np.array_equal(a, b)
+                and (a.size == 0 or a.dtype.kind == b.dtype.kind))
+    if hasattr(a, "__dict__") and hasattr(b, "__dict__"):
+        return type(a).__name__ == type(b).__name__ and same(vars(a),
+                                                             vars(b))
+    return type(a) is type(b) and a == b
+
+
+def _write_pcd(path, points):
+    from hotformerloc_torch.data.loaders import write_pcd
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_pcd(path, points)
+
+
+def _write_csv(path, fields, rows):
+    import csv
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(fields)
+        w.writerows(rows)
+
+
+def write_wild_raw(root, runs=WILD_RAW_RUNS, points=64, seed=3):
+    """A raw Wild-Places tree: per forest ``runs`` runs visiting the places
+    of WILD_RAW_PLACES in order, each with Clouds_downsampled/<ts>.pcd and
+    a poses_aligned.csv whose WILD_BROKEN rows carry truncated
+    timestamps. Returns the rows [(forest, run, place, split, ts, x, y)]
+    and {csv path: the CSV's bytes with every timestamp right}."""
+    import csv
+    import io
+
+    rng = np.random.default_rng(seed)
+    fields = ("timestamp", "x", "y", "z", "qx", "qy", "qz", "qw")
+    rows, fixed = [], {}
+    for f, forest in enumerate(WILD_FORESTS):
+        for r in range(runs):
+            run = f"{forest[0]}-{r + 1:02d}"
+            base = os.path.join(root, forest, run)
+            good, bad = [], []
+            for p, (split, x, y) in enumerate(WILD_RAW_PLACES[forest]):
+                ts = f"{1624000000 + 100000 * f + 1000 * r + 10 * p}." \
+                     f"{100000 + 7 * p:06d}"
+                _write_pcd(os.path.join(base, "Clouds_downsampled",
+                                       ts + ".pcd"),
+                          rng.uniform(-5, 5, (points, 3)))
+                rows.append((forest, run, p, split, ts, x, y))
+                pose = [repr(x), repr(y), "0.0", "0.0", "0.0", "0.0", "1.0"]
+                good.append([ts] + pose)
+                bad.append([ts[:-3] if p in WILD_BROKEN else ts] + pose)
+            _write_csv(os.path.join(base, "poses_aligned.csv"), fields, bad)
+            buf = io.StringIO(newline="")
+            w = csv.writer(buf)
+            w.writerow(fields)
+            w.writerows(good)
+            fixed[os.path.join(base, "poses_aligned_fixed.csv")] = \
+                buf.getvalue().encode()
+    return rows, fixed
+
+
+def wild_training_truth(rows, n_train_runs=2):
+    """wildplaces_tuples' training and testing tuples for ``rows``, as
+    {pickle name: [(rel path, timestamp, positives, non-negatives,
+    (easting, northing))]}: Venman's first n_train_runs runs then
+    Karawatha's (easting + 1e7), each row's positives its place's other
+    rows in the same pickle."""
+    out = {}
+    for name, split in (("training_wild-places.pickle", "train"),
+                        ("testing_wild-places.pickle", "test")):
+        sel = [(fo, run, p, ts, x + (1e7 if fo == "Karawatha" else 0.0), y)
+               for fo in WILD_FORESTS
+               for (fo2, run, p, sp, ts, x, y) in rows
+               if fo2 == fo and sp == split
+               and run in sorted({r[1] for r in rows if r[0] == fo})[
+                   :n_train_runs]]
+        tuples = []
+        for i, (fo, run, p, ts, x, y) in enumerate(sel):
+            same_place = [j for j, s in enumerate(sel) if s[:1] == (fo,)
+                          and s[2] == p]
+            tuples.append((f"{fo}/{run}/Clouds_downsampled/{ts}.pcd",
+                           float(ts), [j for j in same_place if j != i],
+                           same_place, (x, y)))
+        out[name] = tuples
+    return out
+
+
+def wild_test_sets_truth(rows):
+    """wildplaces_tuples' evaluation sets for ``rows``: per forest,
+    (database sets, query sets) over its runs in order."""
+    out = {}
+    for fo in WILD_FORESTS:
+        runs = sorted({r[1] for r in rows if r[0] == fo})
+        dbs, qs = [], []
+        for ri, run in enumerate(runs):
+            mine = [r for r in rows if r[0] == fo and r[1] == run]
+            db = {k: {"query": f"{fo}/{run}/Clouds_downsampled/{ts}.pcd",
+                      "northing": y, "easting": x,
+                      "pose": np.array([x, y, 0, 0, 0, 0, 1.0]),
+                      "timestamp": float(ts)}
+                  for k, (_, _, _, _, ts, x, y) in enumerate(mine)}
+            tests = [k for k, r in enumerate(mine) if r[3] == "test"]
+            qs.append({n: {**db[k], **{i: [k] for i in range(len(runs))
+                                       if i != ri}}
+                       for n, k in enumerate(tests)})
+            dbs.append(db)
+        out[fo] = (dbs, qs)
+    return out
+
+
+def check_wild(root, rows, fixed):
+    """fix_broken_timestamps' CSVs and wildplaces_tuples' pickles under
+    ``root`` against the ground truth of ``write_wild_raw``."""
+    from hotformerloc_torch.data.tuples import load_pickle_compat
+    for path, want in fixed.items():
+        with open(path, "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"fix_broken_timestamps: {path}")
+    for name, want in wild_training_truth(rows).items():
+        got = load_pickle_compat(os.path.join(root, name))
+        ok = sorted(got) == list(range(len(want))) and all(
+            t.id == i and t.rel_scan_filepath == w[0]
+            and t.timestamp == w[1] and list(t.positives) == w[2]
+            and list(t.non_negatives) == w[3]
+            and list(t.position) == list(w[4])
+            for i, t, w in ((i, got[i], want[i]) for i in range(len(want))))
+        if not ok:
+            raise AssertionError(f"wildplaces_tuples {name} differs from "
+                                 "the ground truth")
+    for fo, (dbs, qs) in wild_test_sets_truth(rows).items():
+        for kind, want in (("database", dbs), ("query", qs)):
+            got = load_pickle_compat(os.path.join(
+                root, f"{fo}_evaluation_{kind}.pickle"))
+            if not same(got, want):
+                raise AssertionError(f"wildplaces_tuples {fo} {kind} sets "
+                                     "differ from the ground truth")
+
+
+def write_postprocess_raw(root, n_clouds=6, seed=4):
+    """Raw .pcd submaps for postprocess_submaps under
+    root/QCAT/ground_run1/clouds (a poses.csv beside them): a flat ground
+    (z ~ N(0, 0.02), >= 4 points per CSF cell) under object points in
+    PREP_CELLS voxels of PREP_VOXEL (4 points each, >= 0.25 voxel from a
+    voxel face, plus the objects' lowest corner point); the last submap
+    has 10 voxels, fewer points than PREP_MIN_POINTS. Returns {rel path:
+    the voxel centroids of its object points, or None (rejected)}."""
+    rng = np.random.default_rng(seed)
+    v, corner, grid = PREP_VOXEL, np.array([-12.0, -12.0, 1.0]), (30, 30, 4)
+    run = os.path.join(root, "QCAT", "ground_run1")
+    want, poses = {}, []
+    for c in range(n_clouds):
+        n_cells = PREP_CELLS if c < n_clouds - 1 else 10
+        cells = np.concatenate([[0], rng.choice(
+            np.arange(1, int(np.prod(grid))), n_cells - 1, replace=False)])
+        idx = np.stack(np.unravel_index(cells, grid), 1)
+        obj = (corner + (np.repeat(idx, 4, 0) + 0.5
+                         + rng.uniform(-0.25, 0.25, (4 * n_cells, 3))) * v)
+        obj = np.concatenate([corner[None], obj]).astype(np.float32)
+        label = np.concatenate([[0], np.repeat(np.arange(n_cells), 4)])
+        ground = np.concatenate([rng.uniform(-14, 14, (12544, 2)),
+                                 rng.normal(0, 0.02, (12544, 1))], 1)
+        ts = str(1700000000 + c)
+        rel = os.path.join("QCAT", "ground_run1", "clouds", ts + ".pcd")
+        pts = np.concatenate([ground.astype(np.float32), obj])
+        _write_pcd(os.path.join(root, rel), pts[rng.permutation(len(pts))])
+        poses.append([ts, "0.0", "0.0", "0.0"])
+        o64 = obj.astype(np.float64)
+        want[rel] = (np.stack([o64[label == k].mean(0)
+                               for k in range(n_cells)])
+                     if n_cells >= PREP_MIN_POINTS else None)
+    _write_csv(os.path.join(run, "poses.csv"), ("timestamp", "x", "y", "z"),
+               poses)
+    return want
+
+
+def check_postprocess(out_dir, want):
+    """postprocess_submaps' output against ``write_postprocess_raw``: each
+    kept submap's points are its object points' voxel centroids (ground
+    removed), the rejected one is listed, poses.csv is copied."""
+    from hotformerloc_torch.data.loaders import read_pcd
+
+    def rows(a):
+        return a[np.lexsort(a.T[::-1])]
+    for rel, cen in want.items():
+        path = os.path.join(out_dir, rel)
+        if cen is None:
+            if os.path.exists(path):
+                raise AssertionError(f"postprocess_submaps kept {rel}")
+            continue
+        got = read_pcd(path)
+        if not (got.shape == cen.shape and np.allclose(
+                rows(got.astype(np.float64)), rows(cen), atol=1e-4)):
+            raise AssertionError(f"postprocess_submaps {rel}: {got.shape} "
+                                 f"points, want {cen.shape} centroids")
+    rejected = [os.path.basename(r)[:-4] for r, c in want.items()
+                if c is None]
+    with open(os.path.join(out_dir, "rejected_timestamps.txt")) as f:
+        if f.read().split() != rejected:
+            raise AssertionError("postprocess_submaps rejected list off")
+    if not os.path.exists(os.path.join(out_dir, "QCAT", "ground_run1",
+                                       "poses.csv")):
+        raise AssertionError("postprocess_submaps did not copy poses.csv")
+
+
+def _rot(q):
+    from hotformerloc_torch.tools.preprocess import quaternion_to_rot
+    return quaternion_to_rot(q)
+
+
+def write_cswild_raw(root, points=256, seed=5):
+    """A CS-Wild-Places tree: per split of CSWILD_RAW_PLACES the folders
+    CSWILD_FOLDERS, each a poses.csv (timestamp, x, y, z, qx, qy, qz, qw)
+    and clouds/<ts>.pcd. An aerial submap is a cloud in its own frame (z
+    60 m, a random rotation); each ground submap of the same place holds
+    the same points in its frame (z 1.5 m, another rotation), so that
+    the relative pose maps one onto the other. Returns the rows
+    [(split, folder, place, kind, ts, x, y)]."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for s, split in enumerate(CSWILD_RAW_PLACES):
+        world = {}                  # place -> its aerial points in UTM
+        for fi, folder in enumerate(CSWILD_FOLDERS):
+            base = os.path.join(root, split, folder)
+            poses = []
+            for p, (kind, x, y, has_aerial) in enumerate(
+                    CSWILD_RAW_PLACES[split]):
+                if folder == "aerial" and not has_aerial:
+                    continue
+                ts = str(1650000000 + 100000 * s + 1000 * fi + p)
+                q = rng.normal(size=4)
+                q /= np.linalg.norm(q)
+                t = np.array([x, y, 60.0 if folder == "aerial" else 1.5])
+                if folder == "aerial":
+                    pc = rng.uniform(-15, 15, (points, 3))
+                    world[p] = pc @ _rot(q).T + t
+                elif p in world:
+                    pc = (world[p] - t) @ _rot(q)
+                else:
+                    pc = rng.uniform(-15, 15, (points, 3))
+                _write_pcd(os.path.join(base, "clouds", ts + ".pcd"), pc)
+                poses.append([ts] + [repr(float(v)) for v in (*t, *q)])
+                rows.append((split, folder, p, kind, ts, x, y))
+            _write_csv(os.path.join(base, "poses.csv"),
+                       ("timestamp", "x", "y", "z", "qx", "qy", "qz", "qw"),
+                       poses)
+    return rows
+
+
+def cswild_truth(rows):
+    """cswildplaces_tuples' ground truth for ``rows``: the baseline
+    training entries and the test entries in the tool's order, each
+    (rel path, easting, northing, split, place), and per split the
+    evaluation (database sets, query sets). Ground submaps inside a test
+    polygon are test queries; aerial ones at a test place lie within
+    the buffer of those queries; every aerial submap is in the database
+    and among the test entries."""
+    train, test, evals = [], [], {}
+    for split in sorted(CSWILD_RAW_PLACES):
+        dbs, qs = [], []
+        for folder in CSWILD_FOLDERS:
+            db, q = {}, {}
+            aerial = folder == "aerial"
+            for (sp, fo, p, kind, ts, x, y) in rows:
+                if (sp, fo) != (split, folder):
+                    continue
+                rel = f"{split}/{folder}/clouds/{ts}.pcd"
+                entry = (rel, x, y, split, p)
+                rec = {"query": rel, "easting": x, "northing": y}
+                if kind == "test" and not aerial:
+                    test.append(entry)
+                    q[len(q)] = dict(rec)
+                elif kind == "train":
+                    train.append(entry)
+                if aerial:
+                    test.append(entry)
+                    db[len(db)] = dict(rec)
+            dbs.append(db)
+            qs.append(q)
+        for j, q in enumerate(qs):
+            for rec in q.values():
+                for i, db in enumerate(dbs):
+                    if i != j:
+                        rec[i] = [d for d, r in db.items()
+                                  if (r["easting"], r["northing"])
+                                  == (rec["easting"], rec["northing"])]
+        evals[split] = (dbs, qs)
+    return train, test, evals
+
+
+def cswild_tuples_truth(entries, test_set):
+    """Per entry (positives, non-negatives, negatives) as
+    cswildplaces_tuples builds them: a row's radius sets are its place's
+    rows; in the test set an aerial row is skipped (all empty) and a
+    ground row's positives are its place's aerial rows, its
+    non-negatives take in every ground row."""
+    every = set(range(len(entries)))
+    ground = {i for i, e in enumerate(entries) if "ground" in e[0]}
+    out = []
+    for i, e in enumerate(entries):
+        place = {j for j, o in enumerate(entries) if o[3:] == e[3:]}
+        pos, nonneg, neg = place - {i}, set(place), every - place
+        if test_set and "aerial" in e[0]:
+            pos, nonneg, neg = set(), set(), set()
+        elif test_set:
+            pos, neg, nonneg = pos - ground, neg - ground, nonneg | ground
+        out.append((sorted(pos), sorted(nonneg), sorted(neg)))
+    return out
+
+
+def check_cswild(save_dir, rows):
+    """cswildplaces_tuples' v1 / v2 pickles and evaluation sets under
+    ``save_dir`` against ``cswild_truth``."""
+    from hotformerloc_torch.data.tuples import load_pickle_compat
+    train, test, evals = cswild_truth(rows)
+    for base, entries, test_set in (
+            ("training_queries_CSWildPlaces_baseline_", train, False),
+            ("test_queries_CSWildPlaces_", test, True)):
+        v1 = load_pickle_compat(os.path.join(save_dir, base + "v1.pickle"))
+        v2 = load_pickle_compat(os.path.join(save_dir, base + "v2.pickle"))
+        want = cswild_tuples_truth(entries, test_set)
+        ok = sorted(v1) == sorted(v2) == list(range(len(entries)))
+        for i, (e, (pos, nonneg, neg)) in enumerate(zip(entries, want)):
+            t, d = v2.get(i), v1.get(i)
+            ok = ok and (
+                t.id == i and t.rel_scan_filepath == e[0]
+                and t.timestamp == os.path.basename(e[0])[:-4]
+                and list(t.positives) == pos
+                and list(t.non_negatives) == nonneg
+                and list(t.position) == [e[1], e[2]]
+                and d["query"] == e[0] and d["positives"] == pos
+                and sorted(d["negatives"]) == neg)
+        if not ok:
+            raise AssertionError(f"cswildplaces_tuples {base}: tuples "
+                                 "differ from the ground truth")
+    for split, (dbs, qs) in evals.items():
+        base = os.path.join(save_dir, f"CSWildPlaces_{split}_evaluation")
+        for kind, want in (("database", dbs), ("query", qs)):
+            if not same(load_pickle_compat(f"{base}_{kind}.pickle"), want):
+                raise AssertionError(f"cswildplaces_tuples {split} {kind} "
+                                     "sets differ from the ground truth")
+
+
+def overlap_truth(rows):
+    """ground_aerial_overlap's counts per split of ``rows``: ground
+    submaps of a place with an aerial submap pair up (the same points, so
+    chamfer 0 and overlap 1), the others are skipped (no aerial submap
+    within 10 m)."""
+    out = {}
+    for split, places in CSWILD_RAW_PLACES.items():
+        n = sum(1 for r in rows if r[0] == split and "ground" in r[1])
+        pairs = sum(1 for r in rows if r[0] == split and "ground" in r[1]
+                    and places[r[2]][3])
+        out[split] = {"pairs": pairs, "skipped": n - pairs}
+    return out
+
+
+def write_campus_raw(root, n=12, m=6):
+    """Upstream-format CS-Campus3D pickles: n training queries (i's
+    positive i ^ 1, its non-negatives i, i ^ 1 and (i + 2) % n) and 2
+    evaluation runs of m queries (query j's true match j in the other
+    run). Returns (train pickle, query pickle, train dict, query runs)."""
+    import pickle
+    os.makedirs(root, exist_ok=True)
+    train = {i: {"query": f"umd/umd_all_4096/{1000 + i}.bin",
+                 "northing": 100.0 * i, "easting": 5.0,
+                 "positives": [i ^ 1],
+                 "negatives": [j for j in range(n)
+                               if j not in (i, i ^ 1, (i + 2) % n)]}
+             for i in range(n)}
+    query = [[{"query": f"umd/run{r}/{2000 + j}.bin", "northing": 50.0 * j,
+               "easting": 0.0, 1 - r: [j]} for j in range(m)]
+             for r in range(2)]
+    paths = []
+    for name, obj in (("training_queries_umd_4096.pickle", train),
+                      ("umd_evaluation_query.pickle", query)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "wb") as f:
+            pickle.dump(obj, f)
+    return paths[0], paths[1], train, query
+
+
+def check_campus(train_path, query_path, train, query):
+    """cscampus3d_convert's _v2 pickles against ``write_campus_raw``."""
+    from hotformerloc_torch.data.tuples import load_pickle_compat
+    got = load_pickle_compat(train_path.replace(".pickle", "_v2.pickle"))
+    n = len(train)
+    ok = sorted(got) == list(range(n)) and all(
+        t.id == i and t.rel_scan_filepath == train[i]["query"]
+        and t.timestamp == 1000 + i and list(t.positives) == [i ^ 1]
+        and list(t.non_negatives) == sorted({i, i ^ 1, (i + 2) % n})
+        and list(t.position) == [100.0 * i, 5.0]
+        for i, t in got.items())
+    runs = load_pickle_compat(query_path.replace(".pickle", "_v2.pickle"))
+    if not (ok and runs == [dict(enumerate(run)) for run in query]):
+        raise AssertionError("cscampus3d_convert differs from the ground "
+                             "truth")
+
+
+def prep_phase(smi, loader_clouds=PREP_LOADER_CLOUDS,
+               workers=PREP_LOADER_WORKERS):
+    """The dataset-preparation tools through their CLIs, each in a
+    process of its own (host only), on synthetic raw trees under
+    .chip_tmp/prep, each checked against the ground truth its tree was
+    built with and timed: fix_broken_timestamps, postprocess_submaps
+    (ground removal and voxel downsampling on 2 workers),
+    wildplaces_tuples train and test-sets, cswildplaces_tuples,
+    cscampus3d_convert, ground_aerial_overlap, and loader_bench at
+    ``workers`` on a corpus of ``loader_clouds``. Returns the native
+    library loaded, seconds per tool (``tool_seconds``: the CLI's
+    process, start-up included) and the loader's submaps/s per worker
+    count."""
+    import re
+    import shutil
+
+    from hotformerloc_torch.data import native
+    from hotformerloc_torch.tools import loader_bench
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, ".chip_tmp", "prep")
+    shutil.rmtree(work, ignore_errors=True)
+    lib = native.load_library()
+    if lib is None or os.path.realpath(lib._name) != os.path.realpath(
+            native.library_path()):
+        raise AssertionError(f"native library {lib} is not the port's "
+                             f"{native.library_path()}")
+    seconds = {}
+
+    def tool(name, *argv, label=None):
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", f"hotformerloc_torch.tools.{name}",
+             *map(str, argv)], cwd=here, capture_output=True, text=True,
+            timeout=900, env=dict(os.environ, PYTHONPATH=here))
+        seconds[label or name] = time.time() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{name} {argv}: rc {r.returncode}\n"
+                                 f"{r.stderr[-3000:]}")
+        return r.stdout
+
+    wild = os.path.join(work, "wild")
+    rows, fixed = write_wild_raw(wild)
+    tool("fix_broken_timestamps", "--root", wild)
+    raw, pp = os.path.join(work, "raw"), os.path.join(work, "postprocessed")
+    want = write_postprocess_raw(raw)
+    tool("postprocess_submaps", "--root", raw, "--save_dir", pp,
+         "--remove_ground", "--downsample", "--downsample_type", "voxel",
+         "--voxel_size", PREP_VOXEL, "--min_num_points", PREP_MIN_POINTS,
+         "--num_workers", 2)
+    check_postprocess(pp, want)
+    for cmd in ("train", "test-sets"):
+        tool("wildplaces_tuples", cmd, "--root", wild,
+             label=f"wildplaces_tuples {cmd}")
+    check_wild(wild, rows, fixed)
+    cs, cs_out = os.path.join(work, "cswild"), os.path.join(work, "cs_out")
+    crows = write_cswild_raw(cs)
+    tool("cswildplaces_tuples", "--root", cs, "--save_dir", cs_out,
+         *[a for k, v in CSWILD_ARGS.items() for a in (f"--{k}", v)])
+    check_cswild(cs_out, crows)
+    campus = write_campus_raw(os.path.join(work, "campus"))
+    tool("cscampus3d_convert", "--train_pickle", campus[0],
+         "--query_pickle", campus[1])
+    check_campus(*campus)
+    got = {m[0]: {"pairs": int(m[1]), "skipped": int(m[2]),
+                  "chamfer": float(m[3]), "overlap": float(m[4])}
+           for m in re.findall(r"^(\w+): pairs=(\d+) skipped=(\d+) "
+                               r"mean_chamfer=([\d.]+)m mean_overlap="
+                               r"([\d.]+)$",
+                               tool("ground_aerial_overlap",
+                                    "--postproc_path", cs), re.M)}
+    want = {s: {**c, "chamfer": 0.0, "overlap": 1.0}
+            for s, c in overlap_truth(crows).items()}
+    if got != want:
+        raise AssertionError(f"ground_aerial_overlap {got} != {want}")
+    lroot = os.path.join(work, "loader")
+    t0 = time.time()
+    loader_bench.make_corpus(lroot, n=loader_clouds)
+    corpus_s = time.time() - t0
+    lout = os.path.join(work, "LOADER_BENCH_torch.json")
+    tool("loader_bench", "--root", lroot, "--workers", workers, "--out",
+         lout)
+    with open(lout) as f:
+        bench = json.load(f)
+    rates = {w: bench[f"workers_{w}"]["submaps_s"]
+             for w in workers.split(",")}
+    if bench["corpus"] != loader_clouds or not all(
+            np.isfinite(r) and r > 0 for r in rates.values()):
+        raise AssertionError(f"loader_bench: {bench}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"card": smi, "native_library": lib._name,
+            "tool_seconds": seconds,
+            "loader_corpus_seconds": corpus_s,
+            "loader_submaps_s": rates,
+            "loader": {k: bench[k] for k in ("batch", "num_points", "mode",
+                                            "corpus", "host_cpus")},
+            "ground_aerial_overlap": got}
+
+
+def attn_ab_phase(torch, smi):
+    """tools/pallas_ab.py's three cases on the card: the port's
+    WindowAttention in bf16 on the kernel route (K1 / K2 on their
+    tensor-core bodies) against the einsum route (no kernel launched),
+    forward and forward+backward ms. Under the loss over valid query
+    rows, the kernel route's output and the gradient of x and of each
+    parameter, the RPE table's included, lie within the bf16 bar of the
+    einsum route's own largest |value|: TOL["bf16_rel"] for the output,
+    TOL_BWD["bf16"]["act"] for each gradient. Every gradient here is a
+    bf16 result rounded once on both routes (x, qkv, proj) or an fp32
+    sum of terms that the einsum route rounds to bf16 first (its dattn,
+    for the table); K2's table gradient on the same inputs is held to
+    the fp32-sum bar in phase 5. Returns the kernel routes' K1 / K2
+    launches and the phase's numbers."""
+    from hotformerloc_torch.tools import pallas_ab
+    cases, launches = [], {"window_attn": 0, "window_attn_bwd": 0}
+    for case in pallas_ab.CASES:
+        # no torch.profiler window here: windows profiled before the
+        # train phase leave the probe tools' later windows without
+        # device events (phase 8)
+        r = pallas_ab.bench_case(*case, profile=False)
+        k, e = r["kernel"]["launches"], r["einsum"]["launches"]
+        peak = r["einsum_grad_max_abs"]
+        far = [leaf for leaf, d in r["grad_maxdiff_vs_einsum"].items()
+               if not d <= TOL_BWD["bf16"]["act"] * peak[leaf]]
+        if not (k["window_attn"] > 0 and k["window_attn"]
+                == k["window_attn_tc"] and k["window_attn_bwd"] > 0
+                and k["window_attn_bwd"] == k["window_attn_bwd_tc"]
+                and not any(e.values()) and r["finite"] and not far
+                and r["maxdiff_vs_einsum"]
+                <= TOL["bf16_rel"] * r["einsum_max_abs"]):
+            raise AssertionError(f"attn_ab {case[0]} (gradients beyond "
+                                 f"the bar: {far}): {r}")
+        for name in launches:
+            launches[name] += k[name]
+        cases.append(r)
+    torch.cuda.empty_cache()
+    return launches, {"card": smi, "cases": cases}
 
 
 WILD_LOCATIONS = {"CSWildPlaces": ("Karawatha", "Venman", "QCAT", "Samford"),
@@ -3347,6 +4035,12 @@ def main():
     emit({"phase": "bwd_kernels_seconds",
           "seconds": round(time.time() - t_phase, 1)})
 
+    # ---- 5b. window attention at module level: kernel vs einsum route ----
+    t_phase = time.time()
+    attn_ab_launches, attn_ab = attn_ab_phase(torch, smi)
+    emit({"phase": "attn_ab", **attn_ab,
+          "seconds": round(time.time() - t_phase, 1)})
+
     # ---- 6. the train step -----------------------------------------------
     t_phase = time.time()
     train_launches, train = train_phase(
@@ -3363,6 +4057,11 @@ def main():
     t_phase = time.time()
     entry_launches, entry = entry_phase(torch, dev, smi, pts, pmask)
     emit({"phase": "entry", **entry,
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 6h. the dataset-preparation tools (host only) --------------------
+    t_phase = time.time()
+    emit({"phase": "prep", **prep_phase(smi),
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 6e. a short convergence run through the tool ----------------------
@@ -3446,6 +4145,7 @@ def main():
             extra = {"launches_tc": (train_launches if is_bwd
                                      else launches)[tc],
                      "launches_tc_train_step": train_launches[tc],
+                     "launches_attn_ab": attn_ab_launches[kname],
                      "cc_ms": total("cc_ms_bf16")}
             if is_bwd:
                 extra["nodtab_ms"] = total("nodtab_ms_bf16")

@@ -37,11 +37,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from hotformerloc_torch.utils.profiling import smi_line
 
 RESULTS_PATH = "docs/COMPONENT_PROFILE_torch.json"
 # kernel against plain version: forward relative to max(1, max |plain|)
@@ -316,17 +317,6 @@ class Profiler:
             del model
             if cuda:
                 torch.cuda.empty_cache()
-
-
-def smi_line() -> Optional[str]:
-    """nvidia-smi's name and power limit of the cards, or None."""
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip() or None
-    except (OSError, subprocess.SubprocessError):
-        return None
 
 
 def run(argv: Optional[Sequence[str]] = None):

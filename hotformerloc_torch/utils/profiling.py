@@ -15,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
+import subprocess
 import time
 from typing import Callable, Dict, Iterator, Optional, Union
 
@@ -82,6 +83,18 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2,
 # (bf16 on tensor cores, fp32 on CUDA cores)
 H100_BYTES_S = 3.35e12
 H100_PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+
+
+def smi_line() -> Optional[str]:
+    """nvidia-smi's name and power limit of the cards, or None
+    (no card, no nvidia-smi)."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip() or None
+    except (OSError, subprocess.SubprocessError):
+        return None
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:

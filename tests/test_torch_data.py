@@ -15,11 +15,15 @@ code on the same seeded generators.
 * morton_encode through the port's native library (built into
   hotformerloc_torch/build/, never over the tracked native/libpointops.so)
   and through its torch fallback, against the JAX package's;
-* a fresh interpreter that imports every module of the port and loads
-  that pickle has no jax, flax, optax, orbax or hotformerloc_tpu module.
+* a fresh interpreter that imports every module of the port (the
+  twelve ported dataset and A/B tools among them) and loads that pickle
+  has no jax, flax, optax, orbax or hotformerloc_tpu module; and no
+  import statement in the port or in chip_smoke.py, function-local ones
+  included, names one (an AST scan).
 """
 import torch_threads  # noqa: F401  (first: one torch thread per worker)
 
+import ast
 import hashlib
 import os
 import pickle
@@ -235,6 +239,42 @@ def test_morton_library_and_fallback(monkeypatch):
     assert _sha(tracked) == before
 
 
+# the JAX package's dataset-preparation tools and its window-attention
+# A/B, each with a counterpart of the same name in the port
+PORTED_TOOLS = ("geometry", "preprocess", "fix_broken_timestamps",
+                "postprocess_submaps", "pnv_tuples", "wildplaces_tuples",
+                "cswildplaces_tuples", "cscampus3d_convert",
+                "ground_aerial_overlap", "visualise_positives",
+                "loader_bench", "pallas_ab")
+
+
+def test_port_imports_no_jax_package_anywhere():
+    """No import of the JAX package (or of JAX) in any module of the
+    port, nor in chip_smoke.py, at any depth: a function-local import
+    runs only when the function does, so the fresh interpreter below
+    would miss it."""
+    banned = ("hotformerloc_tpu", "jax", "jaxlib", "flax", "optax", "orbax")
+    files = sorted(str(p) for p in (ROOT / "hotformerloc_torch").rglob(
+        "*.py")) + [str(ROOT / "chip_smoke.py")]
+    assert len(files) > 60
+    assert {str(ROOT / "hotformerloc_torch" / "tools" / f"{m}.py")
+            for m in PORTED_TOOLS} <= set(files)
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}:{node.lineno} {n}" for n in names
+                    if n.split(".")[0] in banned]
+    assert bad == []
+
+
 def test_port_imports_no_jax_in_fresh_interpreter(synth_dataset):
     root, _ = synth_dataset
     import hotformerloc_torch
@@ -244,6 +284,8 @@ def test_port_imports_no_jax_in_fresh_interpreter(synth_dataset):
     assert "hotformerloc_torch.data.pipeline" in mods
     assert {"hotformerloc_torch.tools.convergence_run",
             "hotformerloc_torch.tools.synthetic_benchmark"} <= set(mods)
+    assert {f"hotformerloc_torch.tools.{m}" for m in PORTED_TOOLS} <= \
+        set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
