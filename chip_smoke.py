@@ -228,7 +228,16 @@ script exits non-zero without the final line:
    (cuobjdump) must show the redesigned bodies: HMMA (tensor-core mma) in
    the products' window_product_kernel, no global atomic in
    dtab_cluster_kernel, bulk copies and cluster barriers in
-   dwconv_resident_kernel. The
+   dwconv_resident_kernel, and in take_rows_kernel the index broadcast
+   by shuffle, streaming stores and row loads through L1; softmax_kernel
+   streaming stores and butterfly shuffles. Then ``redesign_checks``
+   holds the kernels redesigned in PR 15 against their plain versions
+   beyond the tools' shapes: take_rows exactly at B > 1 on strided
+   indices with -1 and Nx among them (fp32 and bf16 rows of 256), on
+   rows of 9 vectors (bf16 C = 72, fp32 C = 36; flat and B > 1) and of
+   one vector; the softmax at L = 1, 31, 32, 33, 49, 64, 65 and 1024 with
+   -1e9 entries and one large entry, within 1e-5 max |plain| (T1 and
+   T4's shapes are the tools' own, held exactly there). The
    tools hold every kernel against its plain version (take_rows and the
    copy-like constructs bit for bit, dwconv_resident within one bf16 ulp
    / 1e-5 at fp32, the products, softmax and dtab to a relative 1e-5),
@@ -294,6 +303,7 @@ Every phase prints its seconds.
 """
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -3447,8 +3457,62 @@ SASS_WANT = {
         "window_product_kernel": {"HMMA": True},
         "dtab_cluster_kernel": {"RED.": False, "ATOMG": False,
                                 "ATOM.E": False, "UCGABAR": True}},
-    "gather": {"dwconv_resident_kernel": {"UBLKCP": True, "UCGABAR": True}},
+    "gather": {"dwconv_resident_kernel": {"UBLKCP": True, "UCGABAR": True},
+               "take_rows_kernel": {"SHFL.IDX": True, "STG.E.EF.128": True,
+                                    "LDG.E.128.CONSTANT": True,
+                                    "LDG.E.NA.128": False}},
 }
+SASS_WANT["constructs"]["softmax_kernel"] = {"STG.E.EF": True,
+                                             "SHFL.BFLY": True}
+# redesign_checks' softmax row lengths
+SOFTMAX_CHECK_L = (1, 31, 32, 33, 49, 64, 65, 1024)
+
+
+def redesign_checks(torch):
+    """take_rows and the softmax (redesigned in PR 15) against their
+    plain versions on the card beyond the probe tools' shapes: take_rows
+    bit for bit, the softmax within 1e-5 max |plain|. Returns {case: max
+    |kernel - plain|}; raises on a miss. Its launches precede the tools'
+    counted runs."""
+    from hotformerloc_torch.ops.kernels import constructs as kcon
+    from hotformerloc_torch.ops.kernels import gather as kgather
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(15)
+    errs = {}
+    for C, dt in ((256, torch.float32), (256, torch.bfloat16),
+                  (72, torch.bfloat16), (36, torch.float32),
+                  (8, torch.bfloat16)):
+        B, Nx, TN = 3, 300, 257
+        x = torch.from_numpy(rng.normal(0, 1, (B, Nx, C)).astype(
+            np.float32)).to(dev, dt)
+        tab = rng.integers(-1, Nx + 1, (B, TN, 27)).astype(np.int32)
+        tab[:, :4, 0] = [-1, Nx, 0, Nx - 1]
+        tab = torch.from_numpy(tab).to(dev)
+        for name, xx, ii in ((f"B3_strided_C{C}", x, tab[..., 0]),
+                             (f"flat_C{C}", x[1], tab[1, :, 5])):
+            name += "_" + str(dt).split(".")[1]
+            out = kgather.take_rows(xx, ii)
+            ref = kgather.take_rows_reference(xx, ii)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.equal(out, ref):
+                raise AssertionError(f"take_rows {name}: differs from its "
+                                     f"plain version")
+            errs[f"take_rows_{name}"] = 0.0
+    for L in SOFTMAX_CHECK_L:
+        a = rng.normal(0, 3, (37, L)).astype(np.float32)
+        a[::3, ::2] = -1e9
+        a[1, L // 2] = 80.0
+        t = torch.from_numpy(a).to(dev)
+        out, ref = kcon.softmax(t), kcon.softmax_reference(t)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        lim = 1e-5 * float(ref.abs().max())
+        if not (err <= lim and torch.isfinite(out).all()):
+            raise AssertionError(f"softmax L={L}: max |kernel - plain| = "
+                                 f"{err} > {lim}")
+        errs[f"softmax_L{L}"] = err
+    return errs
 
 
 def sass_census():
@@ -3491,7 +3555,9 @@ def probes_phase(torch):
     entries built from the tools' own lines, phase numbers)."""
     from hotformerloc_torch.ops import kernels
     from hotformerloc_torch.ops.kernels import window_attn as kattn
-    from hotformerloc_torch.ops.kernels.constructs import CONSTRUCTS
+    from hotformerloc_torch.ops.kernels import gather as kgather
+    from hotformerloc_torch.ops.kernels.constructs import (CONSTRUCTS,
+                                                           softmax_plan)
     from hotformerloc_torch.tools import gather_bench, mosaic_probe
     from hotformerloc_torch.utils import profiling
 
@@ -3518,6 +3584,7 @@ def probes_phase(torch):
             "band": {"octree_dwconv": 2 * per, "octree_dwconv_bwd": per}}
     want["attn"] = {k: v for k, v in want["attn"].items() if v}
     sass = sass_census()
+    checks = redesign_checks(torch)
     reps = ["--reps", str(PROBE_REPS)]
     runs = {"gather_bench": lambda: gather_bench.run(["--batch", "8", *reps])}
     for cmd in ("constructs", "gather", "attn", "band"):
@@ -3543,7 +3610,8 @@ def probes_phase(torch):
                                  f" ({retaken[tool]} windows retaken)")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    tools = {"sass": sass, "launches_per_tool_run": launches,
+    tools = {"sass": sass, "redesign_checks": checks,
+             "launches_per_tool_run": launches,
              "retaken_profiler_windows": retaken,
              "tools_seconds": round(time.time() - t0, 1)}
 
@@ -3568,7 +3636,12 @@ def probes_phase(torch):
         max_abs_err=max([0.0] + [ln["maxdiff"] for ln in out["gather"]]),
         shape="T1: x (8, 4224, 256) bf16, idx = neigh[..., 0]",
         t4_ms={ln["probe"]: ln["device_ms"] for ln in out["gather"]},
-        units=units + " (library: torch.index_select)")
+        t4_library_ms={ln["probe"]: ln["library_device_ms"]
+                       for ln in out["gather"]},
+        t4_bound_ms={ln["probe"]: ln["bound_ms"] for ln in out["gather"]},
+        plan=kgather.take_plan(8 * 4224, 32),
+        units=units + " (library: torch.index_select; t4_*: T4's six "
+        "cases; plan: take_plan's at T1)")
     dw = entry("dwconv_resident", res["pl_dw"], SOURCES["dwconv_resident"],
                REPLACES["dwconv_resident"])
     alt, d32 = res["pl_dw_alt_cluster"], res["pl_dw_fp32"]
@@ -3605,6 +3678,9 @@ def probes_phase(torch):
                   f":{CONSTRUCTS[name][2]})")
         e.update(body=ln["body"], shape=f"T3: out {ln['out']} {ln['dtype']}",
                  units=units)
+        if name == "softmax":
+            e["plan"] = softmax_plan(math.prod(ln["out"][:-1]),
+                                     ln["out"][-1])
         line.append(e)
     return line, tools
 

@@ -40,8 +40,9 @@
 // them in block-rank order and writes its slice once: no float atomics,
 // no memset, one launch.
 //
-// The other six are the plainest correct kernel: one thread per output
-// element, or one warp per softmax row.
+// softmax keeps a row in its warp's registers (softmax_kernel: one read
+// and one expf per value). The other five are the plainest correct
+// kernel: one thread per output element.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -380,28 +381,54 @@ __global__ void selloop_kernel(const int* __restrict__ idx,
   }
 }
 
-// One warp per row of L <= 1024 values (the probe's L is 49).
-__global__ void softmax_kernel(const float* __restrict__ in,
-                               float* __restrict__ out, long long rows,
-                               int L) {
+// One warp a row, P values a lane held in registers (32 * P >= L <=
+// 1024): each value read once, one expf each, the max and the sum by five
+// shuffles each. The plan (ops/kernels/constructs.py:softmax_plan) picks P
+// from L, in blocks of 4 warps: the probe's 392 rows of 49 (2 values a
+// lane) are 98 blocks. On the H100 at the probe's shapes, rows shared by
+// 8 or 16 lanes (shallower shuffles, several rows a warp) were slower,
+// and so were smaller blocks that reach every SM.
+template <int P>
+__global__ void __launch_bounds__(128)
+softmax_kernel(const float* __restrict__ in, float* __restrict__ out,
+               long long rows, int L) {
   const int lane = threadIdx.x & 31;
-  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       r < rows; r += nwarps) {
-    const float* x = in + r * L;
-    float m = __int_as_float(0xff800000);          // -inf
-    for (int j = lane; j < L; j += 32) m = fmaxf(m, x[j]);
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (r >= rows) return;                       // the whole warp together
+  const float* x = in + r * L;
+  float v[P];
+  float m = __int_as_float(0xff800000);        // -inf
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) sum += expf(x[j] - m);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;
-    for (int j = lane; j < L; j += 32) out[r * L + j] = expf(x[j] - m) * inv;
+  for (int k = 0; k < P; ++k) {
+    const int j = lane + 32 * k;
+    v[k] = j < L ? __ldg(x + j) : __int_as_float(0xff800000);
+    m = fmaxf(m, v[k]);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    v[k] = lane + 32 * k < L ? expf(v[k] - m) : 0.f;
+    sum += v[k];
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float inv = 1.f / sum;
+  float* y = out + r * L;
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    if (lane + 32 * k < L) __stcs(y + lane + 32 * k, v[k] * inv);
+}
+
+template <int P>
+cudaError_t launch_softmax(const void* in, void* out, long long rows, int L,
+                           int threads, long long blocks, cudaStream_t s) {
+  softmax_kernel<P><<<(unsigned)blocks, threads, 0, s>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), rows, L);
+  return cudaGetLastError();
 }
 
 __global__ void slicestore_kernel(const bf16* __restrict__ q,
@@ -507,13 +534,32 @@ extern "C" int construct_selloop(const void* idx, const void* tab, void* out,
   return cudaGetLastError();
 }
 
-// in, out: (rows, L) fp32.
+// in, out: (rows, L) fp32. The plan (ops/kernels/constructs.py:
+// softmax_plan): per_lane values a lane (a power of two up to 32, 32 *
+// per_lane >= L), blocks of threads (a multiple of 32, at most 128), as
+// many as give every row its warp; another plan is refused.
 extern "C" int construct_softmax(const void* in, void* out, long long rows,
-                                 int L, void* stream) {
-  softmax_kernel<<<blocks_for(rows * 32, 256), 256, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), rows, L);
-  return cudaGetLastError();
+                                 int L, int per_lane, int threads,
+                                 long long blocks, void* stream) {
+  if (rows < 1 || L < 1 || 32LL * per_lane < L || threads < 32 ||
+      threads > 128 || threads % 32 ||
+      blocks != (rows + threads / 32 - 1) / (threads / 32) ||
+      blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (per_lane) {
+#define SOFTMAX_CASE(P) \
+  case P:               \
+    return launch_softmax<P>(in, out, rows, L, threads, blocks, s);
+    SOFTMAX_CASE(1)
+    SOFTMAX_CASE(2)
+    SOFTMAX_CASE(4)
+    SOFTMAX_CASE(8)
+    SOFTMAX_CASE(16)
+    SOFTMAX_CASE(32)
+#undef SOFTMAX_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // q: (rows, C) bf16; out: (rows, width) bf16.

@@ -7,11 +7,27 @@
 //   and k_tiled (four layouts of the same row gather). On the TPU these
 //   asked how a row gather can be written at all inside a kernel; on a GPU
 //   a row gather is the native operation, so one kernel serves all five.
-//   Bound on the H100: bytes (no arithmetic). Design: one warp per output
-//   row, each lane moving 16-byte vectors, so a warp reads one gathered row
-//   as a coalesced burst of up to 512 bytes; the kernel copies bytes and so
-//   serves fp32 and bf16 alike. The indices may be a strided view (column
-//   0 of a (B, N, 27) neighbour table), read in place.
+//   Bound on the H100: bytes (no arithmetic). At the probes' shapes (0.5-1
+//   MB moved) a call is the launch plus two dependent memory latencies
+//   (index, then row), so the design keeps each to one round trip and the
+//   work between them short. The output is taken as one flat run of rows *
+//   vecs 16-byte vectors; each warp copies a span of 32 * U of them (U
+//   vectors a lane, lane l taking vectors l, l + 32, ...), so a row of any
+//   width, 9 vectors or 64, keeps every lane busy and every store is a
+//   contiguous 512-byte burst. The launch plan (ops/kernels/gather.py:
+//   take_plan) takes blocks of 4 warps (fewer, larger blocks launched
+//   faster than more, smaller ones reaching every SM) and the largest U
+//   that still gives each of the card's 132 SMs a block. A warp first
+//   reads the indices of all the rows its span touches (at most 32) in one
+//   load, one index a lane, clamped and turned into a source row there;
+//   each vector's lane then takes its row's source by __shfl_sync. Every
+//   lane issues all of its U row loads before its first store. The indices
+//   are read once (ld.global.nc.L1::no_allocate) and the output is never
+//   read again (st.global.cs); the rows are read through L1, because a
+//   neighbour table's missing taps all read row 0 (over half of T1's), and
+//   on the H100 T1 ran slower with row loads that bypass L1. The kernel
+//   copies bytes, so fp32 and bf16 share one body. The indices may be a
+//   strided view (column 0 of a (B, N, 27) neighbour table), read in place.
 //
 // dwconv_resident -- out[b,n,c] = sum_k w[k,c] x[b, neigh[b,n,k], c]
 //   Replaces gather_bench.py:k_dw, the TPU formulation of the depthwise
@@ -60,23 +76,71 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
-// rows = B * TN output rows of vecs 16-byte vectors each; idx[r * istride]
-// is the source row of output row r within its sample.
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ int ld_once(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// total = B * TN * vecs output vectors (< 2^31), row r of vecs of them;
+// idx[r * istride] is the source row of output row r within its sample.
+// The plan keeps 32 * U < 31 * vecs + 2, so a span touches at most 32
+// rows. Offsets are 32-bit: what precedes the first row load is the
+// latency of a call at the probes' sizes, so it is kept short.
+template <int U>
+__global__ void __launch_bounds__(128)
 take_rows_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
-                 uint4* __restrict__ out, int Nx, int TN, int vecs,
-                 int istride, long long rows) {
-  const int lane = threadIdx.x & 31;
-  const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       r < rows; r += nwarps) {
-    const long long b = r / TN;
-    int j = __ldg(idx + r * istride);
-    j = j < 0 ? 0 : (j >= Nx ? Nx - 1 : j);
-    const uint4* src = x + (b * Nx + j) * vecs;
-    uint4* dst = out + r * vecs;
-    for (int v = lane; v < vecs; v += 32) dst[v] = __ldg(src + v);
+                 uint4* __restrict__ out, unsigned Nx, unsigned TN,
+                 unsigned vecs, unsigned istride, unsigned total) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned s = ((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * 32 * U;
+  if (s >= total) return;                      // the whole warp together
+  const unsigned row0 = s / vecs, lead = s - row0 * vecs;
+  const unsigned r = row0 + lane;
+  unsigned src = 0;                            // sample b's row j: b * Nx + j
+  if (lane * vecs <= lead + 32 * U - 1 && (size_t)r * vecs < total) {
+    const int j = ld_once(idx + (size_t)r * istride);
+    src = r / TN * Nx + (j < 0 ? 0u : (unsigned)j >= Nx ? Nx - 1 : j);
   }
+  // lane's k-th vector: flat s + lane + 32 k = row row0 + rel, vector v
+  const unsigned q32 = 32 / vecs, r32 = 32 - q32 * vecs;
+  unsigned rel = (lead + lane) / vecs;
+  unsigned v = lead + lane - rel * vecs;
+  uint4 buf[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const unsigned sr = __shfl_sync(0xffffffffu, src, rel & 31);
+    if (s + lane + 32 * k < total)
+      buf[k] = __ldg(x + (size_t)sr * vecs + v);
+    v += r32;
+    rel += q32;
+    if (v >= vecs) {
+      v -= vecs;
+      ++rel;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const unsigned f = s + lane + 32 * k;
+    if (f < total) st_stream(out + f, buf[k]);
+  }
+}
+
+template <int U>
+cudaError_t launch_take(const void* x, const void* idx, void* out, int Nx,
+                        int TN, int vecs, int istride, unsigned total,
+                        int threads, long long blocks, cudaStream_t s) {
+  take_rows_kernel<U><<<(unsigned)blocks, threads, 0, s>>>(
+      static_cast<const uint4*>(x), static_cast<const int*>(idx),
+      static_cast<uint4*>(out), Nx, TN, vecs, istride, total);
+  return cudaGetLastError();
 }
 
 constexpr int kResidentThreads = 512;
@@ -329,20 +393,35 @@ inline bool resident_plan_ok(int N, int C, int cluster, int S, int rows,
 
 // x: (B, Nx, C) with rows of vecs 16-byte vectors (16-byte aligned); idx:
 // B * TN indices, the t-th of sample b at idx[(b * TN + t) * istride];
-// out: (B, TN, C). Returns cudaError_t.
+// out: (B, TN, C) of fewer than 2^31 vectors. The plan (ops/kernels/
+// gather.py:take_plan): per_lane vectors a lane (1, 2, 4 or 8), blocks of
+// threads (a multiple of 32, at most 128), as many as cover every vector.
+// Returns cudaError_t; another plan, or one whose warps span more than 32
+// rows, is refused.
 extern "C" int take_rows(const void* x, const void* idx, void* out, int B,
-                         int Nx, int TN, int vecs, int istride,
-                         void* stream) {
-  if (B < 1 || Nx < 1 || TN < 1 || vecs < 1 || istride < 1)
+                         int Nx, int TN, int vecs, int istride, int per_lane,
+                         int threads, long long blocks, void* stream) {
+  if (B < 1 || Nx < 1 || TN < 1 || vecs < 1 || istride < 1 ||
+      (long long)B * Nx > 0x7fffffffLL || threads < 32 || threads > 128 ||
+      threads % 32 || per_lane < 1 || 32LL * per_lane >= 31LL * vecs + 2)
     return cudaErrorInvalidValue;
-  const long long rows = (long long)B * TN;
-  long long blocks = (rows + 7) / 8;                  // 8 warps per block
-  if (blocks > 132 * 16) blocks = 132 * 16;           // warp-stride beyond
-  take_rows_kernel<<<(unsigned)blocks, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(x), static_cast<const int*>(idx),
-      static_cast<uint4*>(out), Nx, TN, vecs, istride, rows);
-  return cudaGetLastError();
+  const long long total = (long long)B * TN * vecs;
+  const long long warps = (total + 32LL * per_lane - 1) / (32LL * per_lane);
+  if (total > 0x7fffffffLL || blocks != (warps + threads / 32 - 1) /
+                                            (threads / 32))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (per_lane) {
+    case 1: return launch_take<1>(x, idx, out, Nx, TN, vecs, istride, total,
+                                  threads, blocks, s);
+    case 2: return launch_take<2>(x, idx, out, Nx, TN, vecs, istride, total,
+                                  threads, blocks, s);
+    case 4: return launch_take<4>(x, idx, out, Nx, TN, vecs, istride, total,
+                                  threads, blocks, s);
+    case 8: return launch_take<8>(x, idx, out, Nx, TN, vecs, istride, total,
+                                  threads, blocks, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // x: (B, N, C), 16-byte aligned; neigh: (B, N, 27) int32; w: (27, C) in

@@ -101,6 +101,22 @@ def library(name: str) -> ctypes.CDLL:
     return build_all()[name]
 
 
+_bound: Dict[tuple, object] = {}
+
+
+def bind(name: str, symbol: str, argtypes: list):
+    """C entry point ``symbol`` of library ``name``, its ``argtypes`` set
+    and its result a C int (cudaError_t), bound once per process."""
+    key = (name, symbol)
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:

@@ -9,7 +9,8 @@ tensors. ``CONSTRUCTS`` maps each name to (wrapper, plain version, line
 of the TPU kernel body in mosaic_probe.py); ``BODIES`` names the kernel
 body each construct runs on the card: the three products share one
 tensor-core body ("tc"), dtab runs as one thread-block cluster
-("cluster"), the other six are one thread per output ("simt").
+("cluster"), softmax holds a row in a warp's registers ("rows",
+``softmax_plan``), the other five are one thread per output ("simt").
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from hotformerloc_torch.ops import kernels
 from hotformerloc_torch.ops.kernels import build
+from hotformerloc_torch.ops.kernels.gather import BLOCK_WARPS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -28,9 +30,7 @@ _L = ctypes.c_longlong
 
 def _launch(name, argtypes, t0, *args):
     """Launch construct ``name`` on t0's device and count it."""
-    fn = getattr(build.library("constructs"), f"construct_{name}")
-    fn.argtypes = argtypes + [_P]
-    fn.restype = ctypes.c_int
+    fn = build.bind("constructs", f"construct_{name}", argtypes + [_P])
     build.check(fn(*args, build.stream_ptr(t0.device)), f"construct_{name}")
     kernels.LAUNCHES[f"construct_{name}"] += 1
 
@@ -225,15 +225,33 @@ def softmax_reference(x):
     return torch.softmax(x, dim=-1)
 
 
+SOFTMAX_MAX_L = 1024
+
+
+def softmax_plan(rows: int, L: int) -> dict:
+    """The softmax kernel's launch plan for ``rows`` rows of ``L``: a
+    warp a row, {"per_lane": values a lane holds, the least power of two
+    with 32 * per_lane >= L; "threads", "blocks": blocks of
+    ``gather.BLOCK_WARPS`` warps}."""
+    if not 1 <= L <= SOFTMAX_MAX_L or rows < 1:
+        raise ValueError(f"construct_softmax: last axis of {L} (1 to "
+                         f"{SOFTMAX_MAX_L}) over {rows} rows")
+    per_lane = 1
+    while 32 * per_lane < L:
+        per_lane *= 2
+    return {"per_lane": per_lane, "threads": 32 * BLOCK_WARPS,
+            "blocks": -(-rows // BLOCK_WARPS)}
+
+
 def softmax(x):
     if not _on_card("softmax", x, dtypes=(_F32,)):
         return softmax_reference(x)
     L = x.shape[-1]
-    if L > 1024:
-        raise ValueError("construct_softmax: last axis above 1024")
+    plan = softmax_plan(x.numel() // L, L)
     out = torch.empty_like(x)
-    _launch("softmax", [_P, _P, _L, _I], x, x.data_ptr(), out.data_ptr(),
-            x.numel() // L, L)
+    _launch("softmax", [_P, _P, _L, _I, _I, _I, _L], x, x.data_ptr(),
+            out.data_ptr(), x.numel() // L, L, plan["per_lane"],
+            plan["threads"], plan["blocks"])
     return out
 
 
@@ -304,4 +322,5 @@ CONSTRUCTS = {
     "packbias": (packbias, packbias_reference, 146),
 }
 BODIES = {name: "simt" for name in CONSTRUCTS}
-BODIES.update(headloop="tc", packbias="tc", dk="tc", dtab="cluster")
+BODIES.update(headloop="tc", packbias="tc", dk="tc", dtab="cluster",
+              softmax="rows")

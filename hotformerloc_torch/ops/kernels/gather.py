@@ -5,7 +5,8 @@ kernel: hotformerloc_tpu/tools/gather_bench.py:k_take (T1) and
 mosaic_probe.py:k_take, k_jtake, k_rowloop, k_tiled (T4). All compute
 ``out = x[clamp(idx, 0)]`` along the row axis and differ only in TPU
 layout. A missing tap (-1) reads row 0, as k_take does; the flat
-``ops/conv._gather_rows`` zeroes it instead.
+``ops/conv._gather_rows`` zeroes it instead. ``take_plan`` is its launch
+plan: 16-byte vectors per lane and threads per block.
 
 ``dwconv_resident`` replaces gather_bench.py:k_dw (T2): the depthwise
 octree conv of K3 with x resident in on-chip memory, here the shared
@@ -29,13 +30,18 @@ from hotformerloc_torch.ops.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 K_TAPS = 27
 # dwconv_resident's cluster sizes, the default first: 16 blocks (a
 # non-portable cluster) hold a sample's 256 bf16 channels, 8 (the
 # portable limit) half of them
 RESIDENT_CLUSTERS = (16, 8)
 MAX_CLUSTER = 16
-
+SMS = 132                     # H100 SXM streaming multiprocessors
+TAKE_PER_LANE = (1, 2, 4, 8)  # take_rows' vectors a lane (its instances)
+# warps of a block in the probe kernels' plans: on the H100 fewer, larger
+# blocks launched faster than more, smaller ones that reach every SM
+BLOCK_WARPS = 4
 
 def take_rows_reference(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Plain version of ``take_rows``."""
@@ -45,6 +51,28 @@ def take_rows_reference(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, TN = ib.shape
     out = torch.gather(xb, 1, ib[..., None].expand(B, TN, xb.shape[2]))
     return out if batched else out[0]
+
+
+def take_plan(rows: int, vecs: int) -> dict:
+    """``take_rows``' launch plan for ``rows`` output rows of ``vecs``
+    16-byte vectors: {"per_lane": vectors a lane copies, "threads",
+    "blocks"}. Each warp copies 32 * per_lane consecutive vectors of the
+    flat output, in blocks of ``BLOCK_WARPS`` warps. per_lane is the most
+    of ``TAKE_PER_LANE`` that still gives each of the ``SMS`` SMs a block
+    (the least where none does), and small enough that a warp's span
+    touches at most 32 rows (32 per_lane < 31 vecs + 2), whose indices
+    its lanes read in one load."""
+    if rows < 1 or vecs < 1:
+        raise ValueError(f"take_rows: no plan for {rows} rows of {vecs} "
+                         f"vectors")
+    total = rows * vecs
+    fits = [u for u in TAKE_PER_LANE if 32 * u < 31 * vecs + 2]
+    per_lane = max((u for u in fits
+                    if -(-total // (32 * u)) >= BLOCK_WARPS * SMS),
+                   default=fits[0])
+    warps = -(-total // (32 * per_lane))
+    return {"per_lane": per_lane, "threads": 32 * BLOCK_WARPS,
+            "blocks": -(-warps // BLOCK_WARPS)}
 
 
 def _check_device(t: torch.Tensor, what: str) -> None:
@@ -85,11 +113,12 @@ def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if B > 1 and ib.stride(0) != TN * istride:
         raise ValueError("take_rows: idx rows must be evenly strided")
     out = torch.empty((B, TN, C), dtype=x.dtype, device=x.device)
-    fn = build.library("gather").take_rows
-    fn.argtypes = [_P] * 3 + [_I] * 5 + [_P]
-    fn.restype = ctypes.c_int
+    plan = take_plan(B * TN, row_bytes // 16)
+    fn = build.bind("gather", "take_rows",
+                    [_P] * 3 + [_I] * 7 + [_L, _P])
     err = fn(x.data_ptr(), ib.data_ptr(), out.data_ptr(), B, Nx, TN,
-             row_bytes // 16, istride, build.stream_ptr(x.device))
+             row_bytes // 16, istride, plan["per_lane"], plan["threads"],
+             plan["blocks"], build.stream_ptr(x.device))
     build.check(err, "take_rows")
     kernels.LAUNCHES["take_rows"] += 1
     return out if batched else out[0]
@@ -122,21 +151,14 @@ def resident_plan(N: int, C: int, elem_size: int,
                      f"memory per block")
 
 
-def _dwconv_lib(name, argtypes):
-    fn = getattr(build.library("gather"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def resident_active_clusters(plan: dict, N: int, C: int, dtype,
                              device) -> int:
     """cudaOccupancyMaxActiveClusters of ``plan`` on ``device``'s card:
     how many of its clusters run at once."""
     count = ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = _dwconv_lib("dwconv_resident_active_clusters",
-                          [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])(
+        err = build.bind("gather", "dwconv_resident_active_clusters",
+                         [_I] * 6 + [ctypes.POINTER(ctypes.c_int)])(
             N, C, plan["cluster"], plan["slice"], plan["rows"],
             build.DTYPE_CODES[str(dtype)], ctypes.byref(count))
     build.check(err, "dwconv_resident_active_clusters")
@@ -174,7 +196,8 @@ def dwconv_resident(x: torch.Tensor, neigh: torch.Tensor,
     plan = resident_plan(N, C, x.element_size(), build.smem_optin(x.device),
                          cluster)
     out = torch.empty_like(x)
-    err = _dwconv_lib("dwconv_resident", [_P] * 4 + [_I] * 7 + [_P])(
+    err = build.bind("gather", "dwconv_resident",
+                     [_P] * 4 + [_I] * 7 + [_P])(
         x.data_ptr(), neigh.data_ptr(), wc.data_ptr(), out.data_ptr(), B, N,
         C, plan["cluster"], plan["slice"], plan["rows"], code,
         build.stream_ptr(x.device))

@@ -3,13 +3,15 @@ a change to the probe kernels against its parent.
 
 Each run is a process of its own, started in that checkout with
 ``PYTHONPATH`` set to it, so it imports that checkout's package and
-builds that checkout's kernels. The tool runs ``gather_bench`` and
-``mosaic_probe constructs`` in the order A B B A (``--rounds`` times), so
-a drift of the card hits both sides alike, and writes every run's lines
-under ``--out`` (``<side><round><a|b>/``). The result is one JSON line
+builds that checkout's kernels. The tool runs ``gather_bench`` (T1, T2),
+``mosaic_probe constructs`` (T3) and ``mosaic_probe gather`` (T4's six
+row gathers) in the order A B B A (``--rounds`` times), so a drift of
+the card hits both sides alike, and writes every run's lines under
+``--out`` (``<side><round><a|b>/``). The result is one JSON line
 (also ``--out``/probe_ab.json): per side and probe line, the device ms of
 each run (``device_ms``; on the CPU ``cpu_ms``), beside the lines'
-library, plain and bound times from the same runs.
+library, plain and bound times from the same runs, and the median of
+each over the runs (``median``).
 
     python -m hotformerloc_torch.tools.probe_ab --a PARENT_DIR --b . \\
         --out ab_out
@@ -21,13 +23,29 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 
-TOOLS = (("gather_bench", []), ("mosaic_probe", ["constructs"]))
+TOOLS = (("gather_bench", []), ("mosaic_probe", ["constructs"]),
+         ("mosaic_probe", ["gather"]))
 # the numbers of a tool's line kept per run
 KEYS = ("device_ms", "cpu_ms", "library_device_ms", "plain_device_ms",
         "bound_ms", "cluster", "slice", "active_clusters", "body")
+
+
+def out_file(tool: str, argv: list) -> str:
+    """The JSON file a run of ``tool`` with ``argv`` writes under --out."""
+    return ("gather_bench.json" if tool == "gather_bench"
+            else f"mosaic_probe_{argv[0]}.json")
+
+
+def tool_lines(tool: str, argv: list, data: dict) -> dict:
+    """{probe line name: line} of a run's JSON file ``data``."""
+    if tool == "gather_bench":
+        return data["results"]
+    key = "construct" if argv[0] == "constructs" else "probe"
+    return {ln[key]: ln for ln in data["lines"]}
 
 
 def run_tool(tree: str, tool: str, argv: list, out: str) -> dict:
@@ -36,13 +54,8 @@ def run_tool(tree: str, tool: str, argv: list, out: str) -> dict:
     cmd = [sys.executable, "-m", f"hotformerloc_torch.tools.{tool}", *argv,
            "--out", os.path.abspath(out)]
     subprocess.run(cmd, cwd=tree, env=env, check=True)
-    name = "gather_bench.json" if tool == "gather_bench" \
-        else "mosaic_probe_constructs.json"
-    with open(os.path.join(out, name)) as fh:
-        data = json.load(fh)
-    if tool == "gather_bench":
-        return data["results"]
-    return {ln["construct"]: ln for ln in data["lines"]}
+    with open(os.path.join(out, out_file(tool, argv))) as fh:
+        return tool_lines(tool, argv, json.load(fh))
 
 
 def summarise(runs: list) -> dict:
@@ -55,6 +68,15 @@ def summarise(runs: list) -> dict:
                 if k in ln:
                     ent.setdefault(k, []).append(ln[k])
     return out
+
+
+def medians(summary: dict) -> dict:
+    """{side: {probe: {key: median over runs}}} of ``summarise``'s
+    numeric lists."""
+    return {side: {probe: {k: statistics.median(v) for k, v in ent.items()
+                           if all(isinstance(e, (int, float)) for e in v)}
+                   for probe, ent in probes.items()}
+            for side, probes in summary.items()}
 
 
 def main(argv=None) -> int:
@@ -80,9 +102,10 @@ def main(argv=None) -> int:
                 lines.update(run_tool(tree, tool, argv_t, os.path.join(
                     args.out, f"{side}{r}{'ab'[i // 2]}")))
             runs.append((side, lines))
+    summary = summarise(runs)
     result = {"order": "abba" * args.rounds, "a": os.path.abspath(args.a),
               "b": os.path.abspath(args.b), "device": args.device,
-              "runs": summarise(runs)}
+              "runs": summary, "median": medians(summary)}
     with open(os.path.join(args.out, "probe_ab.json"), "w") as fh:
         json.dump(result, fh, indent=1)
     print(json.dumps(result), flush=True)

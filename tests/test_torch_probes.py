@@ -5,6 +5,12 @@ held against the JAX package:
   exactly;
 * take_rows (T1, T4) equals the TPU k_take body's expression
   (take_along_axis on max(neigh[..., 0], 0)) and numpy x[idx], exactly;
+* the plain take_rows equals the k_take body at B > 1 on stride-27
+  indices with -1 and Nx among them (Nx against the body's gather in
+  "clip" mode: the port clamps, where jnp's default would fill NaN), and
+  take_rows' launch plan covers every output vector once, in warps whose
+  spans touch at most 32 rows (emulating the kernel's index arithmetic),
+  with every SM given a block of 4 warps where there are the rows to;
 * dwconv_resident (T2) equals the JAX tool's oracle _dwconv_fwd_impl,
   to 1e-5 at fp32 and one bf16 ulp at bf16, and its cluster plan fits a
   block's shared memory, covers every row and channel once and raises
@@ -12,7 +18,10 @@ held against the JAX package:
 * each T3 construct's plain version equals the construct body's jnp
   expression (the JAX tool keeps the bodies inside closures), exactly
   for the copies, pad, reshape, lookup and selects, to a relative 1e-5
-  for the products, the softmax and the dtab sum;
+  for the products, the softmax and the dtab sum; the plain softmax
+  equals jax.nn.softmax at every row length its kernel's plan takes
+  (1 to 1024, with -1e9 entries and a large one), to 1e-5 max |want|,
+  and the plan covers every row and value and refuses L > 1024;
 * gather_bench and every mosaic_probe subcommand run end to end with
   --device cpu, pass their own checks and write only under --out;
 * every new wrapper refuses a device that is neither CPU nor CUDA, and a
@@ -101,6 +110,126 @@ def test_take_rows_matches_numpy_at_t4_shapes(case):
     assert out.dtype == x.dtype, name
     np.testing.assert_array_equal(out.float().numpy(),
                                   x.float().numpy()[idx.numpy()])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_take_rows_reference_matches_k_take_out_of_range(tables, dtype):
+    port, _ = tables
+    B, N, _ = port.shape
+    C = 24
+    neigh = port.copy()
+    neigh[:, :6, 0] = [-1, N, 0, N - 1, N, -1]
+    x = np.random.default_rng(6).normal(0, 1, (B, N, C)).astype(np.float32)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xt.float().numpy(), getattr(jnp, dtype))
+    want = []
+    for b in range(B):              # k_take's body; Nx clamped ("clip")
+        nk = jnp.maximum(jnp.asarray(neigh[b]), 0)
+        want.append(jnp.take_along_axis(
+            xj[b], jnp.broadcast_to(nk[:, 0][:, None], (N, C)), axis=0,
+            mode="clip"))
+    want = np.asarray(jnp.stack(want), np.float32)
+    idx = torch.from_numpy(neigh)[..., 0]
+    assert idx.stride() == (N * 27, 27)
+    out = kgather.take_rows_reference(xt, idx)
+    assert out.dtype == xt.dtype and out.shape == (B, N, C)
+    np.testing.assert_array_equal(out.float().numpy(), want)
+    # -1 reads row 0, Nx row Nx - 1
+    np.testing.assert_array_equal(
+        out.float().numpy()[:, :6],
+        xt.float().numpy()[:, [0, N - 1, 0, N - 1, N - 1, 0]])
+
+
+def emulate_take_plan(rows, vecs, plan):
+    """take_rows_kernel's index arithmetic in numpy: returns how often
+    each flat output vector is copied, after checking that every lane
+    finds its vector's row and column and that the row's index was read
+    by a lane of its warp (at most 32 rows a warp)."""
+    U, th, blocks = plan["per_lane"], plan["threads"], plan["blocks"]
+    total = rows * vecs
+    seen = np.zeros(total, int)
+    lane = np.arange(32)
+    q32, r32 = divmod(32, vecs)
+    for w in range(blocks * th // 32):
+        s = w * 32 * U
+        if s >= total:
+            continue
+        row0, lead = divmod(s, vecs)
+        read = lane * vecs <= lead + 32 * U - 1      # lanes reading an index
+        rel, v = (lead + lane) // vecs, (lead + lane) % vecs
+        for k in range(U):
+            f = s + lane + 32 * k
+            m = f < total
+            assert (rel[m] == f[m] // vecs - row0).all()
+            assert (v[m] == f[m] % vecs).all() and read[rel[m]].all()
+            seen[f[m]] += 1
+            v, rel = v + r32, rel + q32
+            rel, v = np.where(v >= vecs, rel + 1, rel), np.where(
+                v >= vecs, v - vecs, v)
+    return seen
+
+
+# (rows, vecs): T1, T4's six cases (two share a shape), rows of 9, 3 and
+# 1 vectors, a batch of 3 with a ragged last warp
+TAKE_PLAN_SHAPES = [(8 * 4224, 32), (512, 64), (512, 32), (4224, 32),
+                    (8 * 512, 64), (800, 9), (771, 9), (100, 3), (7, 1),
+                    (3 * 257, 16), (1, 64)]
+
+
+@pytest.mark.parametrize("rows,vecs", TAKE_PLAN_SHAPES)
+def test_take_plan_covers_rows_once(rows, vecs):
+    plan = kgather.take_plan(rows, vecs)
+    U, bw = plan["per_lane"], kgather.BLOCK_WARPS
+    assert U in kgather.TAKE_PER_LANE and plan["threads"] == 32 * bw
+    assert 32 * U < 31 * vecs + 2                # <= 32 rows a warp's span
+    warps = -(-rows * vecs // (32 * U))
+    assert plan["blocks"] == -(-warps // bw)
+    assert (emulate_take_plan(rows, vecs, plan) == 1).all()
+    # every SM a block wherever there are the rows for one on each
+    if rows * vecs >= 32 * bw * kgather.SMS:
+        assert plan["blocks"] >= kgather.SMS
+    # and the most vectors a lane that still does
+    more = [u for u in kgather.TAKE_PER_LANE if u > U
+            and 32 * u < 31 * vecs + 2]
+    assert all(-(-rows * vecs // (32 * u)) < bw * kgather.SMS for u in more)
+    with pytest.raises(ValueError, match="no plan"):
+        kgather.take_plan(0, vecs)
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 49, 64, 65, 1024])
+def test_softmax_reference_matches_jax(L):
+    rng = np.random.default_rng(L)
+    a = rng.normal(0, 3, (2, 19, L)).astype(np.float32)
+    a[:, ::3, ::2] = -1e9
+    a[0, 1, L // 2] = 80.0
+    want = np.asarray(jax.nn.softmax(jnp.asarray(a), axis=-1))
+    out = kcon.softmax(torch.from_numpy(a))         # CPU: the plain version
+    assert torch.equal(out, kcon.softmax_reference(torch.from_numpy(a)))
+    np.testing.assert_allclose(out.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("rows", [392, 1, 131, 5000])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 49, 64, 65, 1024])
+def test_softmax_plan_covers_rows_and_values(rows, L):
+    plan = kcon.softmax_plan(rows, L)
+    P, bw = plan["per_lane"], kgather.BLOCK_WARPS
+    # a warp a row, values a lane: the least power of two that holds L
+    assert 32 * P >= L and (P == 1 or 16 * P < L) and P & (P - 1) == 0
+    assert P <= 32 and plan["threads"] == 32 * bw
+    # blocks of 4 warps cover every row once: every SM a block wherever
+    # there are the rows for one on each
+    assert plan["blocks"] == -(-rows // bw)
+    assert (plan["blocks"] - 1) * bw < rows <= plan["blocks"] * bw
+    if rows >= bw * kgather.SMS:
+        assert plan["blocks"] >= kgather.SMS
+
+
+def test_softmax_plan_refuses_rows_past_1024():
+    assert kcon.softmax_plan(8, 1024)["per_lane"] == 32
+    for L in (1025, 0):
+        with pytest.raises(ValueError, match="last axis"):
+            kcon.softmax_plan(8, L)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -477,13 +606,44 @@ def test_bound_ms_takes_the_larger_time():
 
 def test_probe_ab_summarises_runs_per_side():
     from hotformerloc_torch.tools import probe_ab
+    t4 = "take2d_N512_T512_float32"
     runs = [("a", {"pl_dw": {"device_ms": 0.1, "bound_ms": 0.01,
-                             "maxdiff": 0.0}}),
+                             "maxdiff": 0.0},
+                   t4: {"device_ms": 0.0018, "library_device_ms": 0.0016}}),
             ("b", {"pl_dw": {"device_ms": 0.03, "cluster": 16},
                    "dk": {"device_ms": 0.002, "body": "tc"}}),
             ("b", {"pl_dw": {"device_ms": 0.031, "cluster": 16}}),
-            ("a", {"pl_dw": {"device_ms": 0.11, "bound_ms": 0.01}})]
-    assert probe_ab.summarise(runs) == {
-        "a": {"pl_dw": {"device_ms": [0.1, 0.11], "bound_ms": [0.01, 0.01]}},
+            ("a", {"pl_dw": {"device_ms": 0.11, "bound_ms": 0.01},
+                   t4: {"device_ms": 0.0020, "library_device_ms": 0.0017}})]
+    summary = probe_ab.summarise(runs)
+    assert summary == {
+        "a": {"pl_dw": {"device_ms": [0.1, 0.11], "bound_ms": [0.01, 0.01]},
+              t4: {"device_ms": [0.0018, 0.0020],
+                   "library_device_ms": [0.0016, 0.0017]}},
         "b": {"pl_dw": {"device_ms": [0.03, 0.031], "cluster": [16, 16]},
               "dk": {"device_ms": [0.002], "body": ["tc"]}}}
+    med = probe_ab.medians(summary)
+    assert med["a"][t4] == pytest.approx({"device_ms": 0.0019,
+                                          "library_device_ms": 0.00165})
+    assert med["b"]["pl_dw"] == pytest.approx({"device_ms": 0.0305,
+                                               "cluster": 16})
+    assert med["b"]["dk"] == {"device_ms": 0.002}   # "tc" is no number
+
+
+def test_probe_ab_reads_every_tool_run():
+    from hotformerloc_torch.tools import probe_ab
+    # T1/T2, T3 and T4: each tool run's file and its lines' names
+    assert [a for _, a in probe_ab.TOOLS] == [[], ["constructs"],
+                                              ["gather"]]
+    files = {probe_ab.out_file(t, a) for t, a in probe_ab.TOOLS}
+    assert files == {"gather_bench.json", "mosaic_probe_constructs.json",
+                     "mosaic_probe_gather.json"}
+    gather = {"lines": [{"probe": n, "device_ms": 1.0}
+                        for n, _, _ in tprobe.gather_inputs()]}
+    assert sorted(probe_ab.tool_lines("mosaic_probe", ["gather"], gather)) \
+        == sorted(n for n, _, _ in tprobe.gather_inputs())
+    cons = {"lines": [{"construct": "softmax", "probe": "softmax3d"}]}
+    assert list(probe_ab.tool_lines("mosaic_probe", ["constructs"],
+                                    cons)) == ["softmax"]
+    assert probe_ab.tool_lines("gather_bench", [], {"results": {
+        "pl_take": {}}}) == {"pl_take": {}}
