@@ -3464,16 +3464,25 @@ SASS_WANT = {
 }
 SASS_WANT["constructs"]["softmax_kernel"] = {"STG.E.EF": True,
                                              "SHFL.BFLY": True}
+SASS_WANT["constructs"]["onehot4d_kernel"] = {
+    "STG.E.EF.128": True, "SHFL.IDX": True, "LDG.E.128.CONSTANT": True}
+SASS_WANT["constructs"]["pad_kernel"] = {"STG.E.EF.128": True}
 # redesign_checks' softmax row lengths
 SOFTMAX_CHECK_L = (1, 31, 32, 33, 49, 64, 65, 1024)
+# redesign_checks' onehot4d (rows, H) and pad (WT, K, G) cases
+ONEHOT_CHECK = ((18432, 16), (1000, 6), (777, 1), (333, 8), (50, 12))
+PAD_CHECK = ((8, 48, 1), (8, 48, 0), (8, 48, 2), (3, 7, 1), (1, 5, 2),
+             (1, 48, 1), (5, 1, 1))
 
 
 def redesign_checks(torch):
-    """take_rows and the softmax (redesigned in PR 15) against their
-    plain versions on the card beyond the probe tools' shapes: take_rows
-    bit for bit, the softmax within 1e-5 max |plain|. Returns {case: max
-    |kernel - plain|}; raises on a miss. Its launches precede the tools'
-    counted runs."""
+    """The redesigned probe kernels against their plain versions on the
+    card beyond the probe tools' shapes: take_rows bit for bit, the
+    softmax within 1e-5 max |plain|, onehot4d (indices -1, R, 2^31 - 1
+    among valid ones; H 16, 6, 1, 8, 12) and pad (G 0, 1, 2; odd K; one
+    window; a tail of fewer than 4 floats) bit for bit.
+    Returns {case: max |kernel - plain|}; raises on a miss. Its launches
+    precede the tools' counted runs."""
     from hotformerloc_torch.ops.kernels import constructs as kcon
     from hotformerloc_torch.ops.kernels import gather as kgather
 
@@ -3512,6 +3521,29 @@ def redesign_checks(torch):
             raise AssertionError(f"softmax L={L}: max |kernel - plain| = "
                                  f"{err} > {lim}")
         errs[f"softmax_L{L}"] = err
+    R = 231
+    tab_all = rng.normal(0, 1, (R, 16)).astype(np.float32)
+    for rows, H in ONEHOT_CHECK:
+        idx = rng.integers(-2, R + 2, (rows,)).astype(np.int32)
+        idx[:4] = [-1, R, 2 ** 31 - 1, R - 1]
+        tab = torch.from_numpy(np.ascontiguousarray(
+            np.tile(tab_all, (1, 1 + H // 16))[:, :H])).to(dev)
+        it = torch.from_numpy(idx).to(dev)
+        out, ref = kcon.onehot4d(it, tab), kcon.onehot4d_reference(it, tab)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            raise AssertionError(f"onehot4d rows={rows} H={H}: differs "
+                                 f"from its plain version")
+        errs[f"onehot4d_rows{rows}_H{H}"] = 0.0
+    for WT, K, G in PAD_CHECK:
+        b = torch.from_numpy(rng.normal(0, 1, (WT, K, K)).astype(
+            np.float32)).to(dev)
+        out, ref = kcon.pad(b, G), kcon.pad_reference(b, G)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            raise AssertionError(f"pad WT={WT} K={K} G={G}: differs from "
+                                 f"its plain version")
+        errs[f"pad_WT{WT}_K{K}_G{G}"] = 0.0
     return errs
 
 
@@ -3557,6 +3589,8 @@ def probes_phase(torch):
     from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.kernels import gather as kgather
     from hotformerloc_torch.ops.kernels.constructs import (CONSTRUCTS,
+                                                           onehot_plan,
+                                                           pad_plan,
                                                            softmax_plan)
     from hotformerloc_torch.tools import gather_bench, mosaic_probe
     from hotformerloc_torch.utils import profiling
@@ -3575,7 +3609,11 @@ def probes_phase(torch):
                for H_, C_, G_, _ in mosaic_probe.ATTN_FUNCTIONS)
     want = {"gather_bench": {"take_rows": per, "dwconv_resident": 3 * per,
                              "octree_dwconv": 2 * per},
-            "constructs": {k: per for k in cons},
+            # and the floor line: per kernel a checked call, then
+            # device_ms's warm-up and profiled calls (two floor_chain runs)
+            "constructs": {**{k: per for k in cons},
+                           "construct_floor_empty": 2 + PROBE_REPS,
+                           "construct_floor_chain": 2 * (2 + PROBE_REPS)},
             "gather": {"take_rows": n_take * per},
             "attn": {"window_attn": n_attn * 2 * per,
                      "window_attn_bwd": n_attn * per,
@@ -3671,8 +3709,15 @@ def probes_phase(torch):
         "blocks per cluster, channels per cluster, rows per block; "
         "active_clusters: cudaOccupancyMaxActiveClusters)")
     line = [take, dw]
+    floor = [ln for ln in out["constructs"] if ln["construct"] == "floor"]
+    if len(floor) != 1:
+        raise AssertionError("mosaic_probe constructs gave no floor line")
+    tools["floor"] = {k: v for k, v in floor[0].items()
+                      if k.endswith("device_ms") or k == "grid"}
     for ln in out["constructs"]:
         name = ln["construct"]
+        if name == "floor":
+            continue
         e = entry(f"construct_{name}", ln, CONSTRUCT_SOURCE,
                   f"{_TL}mosaic_probe.py:41 (_run of k_{name} "
                   f":{CONSTRUCTS[name][2]})")
@@ -3681,6 +3726,13 @@ def probes_phase(torch):
         if name == "softmax":
             e["plan"] = softmax_plan(math.prod(ln["out"][:-1]),
                                      ln["out"][-1])
+        elif name == "onehot4d":
+            e["plan"] = onehot_plan(math.prod(ln["out"][:-1]),
+                                    ln["out"][-1])
+        elif name == "pad":
+            e["plan"] = pad_plan(ln["out"][0], ln["out"][1] - 1, 1)
+        e.update(floor_empty_ms=tools["floor"]["empty_device_ms"],
+                 floor_chain_ms=tools["floor"]["grid_chain_device_ms"])
         line.append(e)
     return line, tools
 

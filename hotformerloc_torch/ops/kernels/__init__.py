@@ -27,7 +27,9 @@ LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
             "take_rows": 0, "dwconv_resident": 0,
             **{f"construct_{n}": 0 for n in (
                 "headloop", "reshape", "onehot4d", "dtab", "pad", "selloop",
-                "softmax", "slicestore", "dk", "packbias")}}
+                "softmax", "slicestore", "dk", "packbias",
+                # the card's floor for them (mosaic_probe's floor line)
+                "floor_empty", "floor_chain")}}
 
 
 def reset_launches() -> None:

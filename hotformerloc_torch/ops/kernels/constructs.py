@@ -10,7 +10,13 @@ of the TPU kernel body in mosaic_probe.py); ``BODIES`` names the kernel
 body each construct runs on the card: the three products share one
 tensor-core body ("tc"), dtab runs as one thread-block cluster
 ("cluster"), softmax holds a row in a warp's registers ("rows",
-``softmax_plan``), the other five are one thread per output ("simt").
+``softmax_plan``), onehot4d and pad write flat runs of 16-byte streaming
+stores ("vec", ``onehot_plan``, ``pad_plan``), the other three are one
+thread per output ("simt").
+
+``floor_empty`` and ``floor_chain`` launch the two kernels that measure
+the card's floor for the constructs (an empty launch; a dependent index
+and row load and a store); they replace no TPU kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import torch.nn.functional as F
 
 from hotformerloc_torch.ops import kernels
 from hotformerloc_torch.ops.kernels import build
-from hotformerloc_torch.ops.kernels.gather import BLOCK_WARPS
+from hotformerloc_torch.ops.kernels.gather import (BLOCK_WARPS, SMS,
+                                                   take_plan)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -117,15 +124,36 @@ def onehot4d_reference(idx, tab):
     return torch.where(ok[..., None], g, torch.zeros_like(g))
 
 
+def onehot_plan(rows: int, H: int) -> dict:
+    """onehot4d's launch plan for ``rows`` output rows of H floats:
+    {"vec": floats a unit (4, a 16-byte vector, when H % 4 == 0, else
+    1), and ``gather.take_plan``'s "per_lane", "threads", "blocks" for
+    rows of H / vec units}: a warp writes 32 * per_lane consecutive units
+    of the flat output and touches at most 32 rows, whose indices its
+    lanes read in one load."""
+    if rows < 1 or H < 1 or rows * H >= 2 ** 31:
+        raise ValueError(f"construct_onehot4d: no plan for {rows} rows of "
+                         f"{H}")
+    vec = 4 if H % 4 == 0 else 1
+    return {"vec": vec, **take_plan(rows, H // vec)}
+
+
 def onehot4d(idx, tab):
     """out[..., h] = float(bf16(tab[idx[...], h])), 0 where idx is off
-    the table; idx int32, tab (R, H) fp32."""
+    the table; idx int32, tab (R, H) fp32; launched as ``onehot_plan``
+    says."""
     if not _on_card("onehot4d", idx, tab, dtypes=(_I32, _F32)):
         return onehot4d_reference(idx, tab)
     R, H = tab.shape
+    if R * H >= 2 ** 31 or tab.data_ptr() % 16:
+        raise ValueError("construct_onehot4d: want tab 16-byte aligned, "
+                         "below 2^31 entries")
+    plan = onehot_plan(idx.numel(), H)
     out = torch.empty((*idx.shape, H), dtype=_F32, device=idx.device)
-    _launch("onehot4d", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
-            tab.data_ptr(), out.data_ptr(), idx.numel(), H, R)
+    _launch("onehot4d", [_P] * 3 + [_L, _I, _I, _I, _I, _I, _L], idx,
+            idx.data_ptr(), tab.data_ptr(), out.data_ptr(), idx.numel(), H,
+            R, plan["vec"], plan["per_lane"], plan["threads"],
+            plan["blocks"])
     return out
 
 
@@ -187,15 +215,32 @@ def pad_reference(b, G=1):
     return F.pad(b, (G, 0, G, 0))
 
 
+def pad_plan(WT: int, K: int, G: int) -> dict:
+    """pad's launch plan for (WT, K, K) -> (WT, K+G, K+G): the output's
+    ``total`` floats as ``vectors`` 16-byte vectors and a ``tail`` of
+    fewer than 4, a thread each (one more thread for the tail), in
+    blocks of ``gather.BLOCK_WARPS`` warps ("threads", "blocks")."""
+    total = WT * (K + G) ** 2
+    if WT < 1 or K < 1 or G < 0 or total >= 2 ** 31:
+        raise ValueError(f"construct_pad: no plan for ({WT}, {K}, {K}) "
+                         f"with {G} leading zeros")
+    threads, writers = 32 * BLOCK_WARPS, -(-total // 4)
+    return {"vectors": total // 4, "tail": total % 4, "threads": threads,
+            "blocks": -(-writers // threads)}
+
+
 def pad(b, G=1):
+    """(WT, K, K) fp32 -> (WT, K+G, K+G) with G leading zero rows and
+    columns; launched as ``pad_plan`` says."""
     if not _on_card("pad", b, dtypes=(_F32,)):
         return pad_reference(b, G)
-    WT, K, K2 = b.shape
-    if K2 != K:
+    if b.dim() != 3 or b.shape[1] != b.shape[2]:
         raise ValueError("construct_pad: want (WT, K, K)")
+    WT, K, _ = b.shape
+    plan = pad_plan(WT, K, G)
     out = torch.empty((WT, K + G, K + G), dtype=_F32, device=b.device)
-    _launch("pad", [_P, _P, _I, _I, _I], b, b.data_ptr(), out.data_ptr(),
-            WT, K, G)
+    _launch("pad", [_P, _P, _I, _I, _I, _I, _L], b, b.data_ptr(),
+            out.data_ptr(), WT, K, G, plan["threads"], plan["blocks"])
     return out
 
 
@@ -323,4 +368,48 @@ CONSTRUCTS = {
 }
 BODIES = {name: "simt" for name in CONSTRUCTS}
 BODIES.update(headloop="tc", packbias="tc", dk="tc", dtab="cluster",
-              softmax="rows")
+              softmax="rows", onehot4d="vec", pad="vec")
+
+
+# -- the card's floor for the constructs (no TPU kernel) --------------------
+
+def floor_empty(t):
+    """Launch the empty kernel (one block of one warp) on t's card;
+    returns t, so that a timer synchronises on it."""
+    _check_floor(t)
+    _launch("floor_empty", [], t)
+    return t
+
+
+def floor_chain_reference(x, idx):
+    return x[idx.long()]
+
+
+def floor_chain(x, idx, threads):
+    """out[i] = x[idx[i]] for x (rows, 4) fp32 (one 16-byte vector a
+    row), a thread an index: a dependent pair of loads (the index, then
+    the row it names) and one store each, in blocks of ``threads`` (32:
+    one warp; 128: 4-warp blocks) covering idx exactly."""
+    _check_floor(x)
+    n = idx.numel()
+    if x.dim() != 2 or x.shape[1] != 4 or x.dtype != _F32 \
+            or idx.dtype != _I32 or not (x.is_contiguous()
+                                         and idx.is_contiguous()) \
+            or idx.device != x.device or threads not in (32, 128) \
+            or n % threads or not n or x.data_ptr() % 16:
+        raise ValueError(f"construct_floor_chain: want x (rows, 4) fp32 "
+                         f"and int32 idx of a multiple of {threads} on "
+                         f"one card")
+    out = torch.empty((n, 4), dtype=_F32, device=x.device)
+    _launch("floor_chain", [_P, _P, _P, _I, _I], x, idx.data_ptr(),
+            x.data_ptr(), out.data_ptr(), threads, n // threads)
+    return out
+
+
+def _check_floor(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"construct_floor: the floor is measured on the "
+                         f"card, not on {t.device}")
+
+
+FLOOR_GRID = (32 * BLOCK_WARPS, SMS)   # threads, blocks: a block an SM

@@ -22,7 +22,11 @@ writes mosaic_probe_<subcommand>.json there; nothing else is written.
 
   constructs  the ten construct kernels of ops/kernels/constructs.py
               (WT=8, T=49, K=48, C=256, H=16, hd=16, R=231); each line
-              names the kernel body it runs on the card (``body``)
+              names the kernel body it runs on the card (``body``). On
+              the card one more line, ``floor``, gives the card's floor
+              for them (``floor_line``): the device ms of an empty
+              launch and of a dependent index-and-row load and a store,
+              in one warp and in a 4-warp block on every SM
   gather      take_rows at the JAX tool's six row-gather cases, against
               the numpy oracle x[idx]
   attn        K1 forward, and K1 + K2 for grad(sum(out^2)) with respect
@@ -51,6 +55,7 @@ from hotformerloc_torch.tools.gather_bench import (check_close, check_equal,
                                                    device_name, parse_device,
                                                    take_library, timing,
                                                    yardsticks)
+from hotformerloc_torch.utils.profiling import device_ms
 
 WT, T, C, H, K, R = 8, 49, 256, 16, 48, 231
 HD = C // H
@@ -199,7 +204,42 @@ def constructs(dev, reps):
                       **timing(dev, lambda: fn(*a), reps),
                       **yardsticks(dev, reps, lambda: ref_fn(*a), lib,
                                    construct_cost(name, a, out), "bf16")})
+    if dev.type == "cuda":
+        lines.append(floor_line(dev, reps))
     return lines
+
+
+FLOOR_ROWS = 4224              # floor_chain's table: rows of 16 bytes
+
+
+def floor_line(dev, reps):
+    """The card's floor for the constructs, on the card only: the device
+    ms (``device_ms``, as the constructs' lines) of the empty kernel
+    (``empty_device_ms``), of one warp's dependent index and row load and
+    store (``warp_chain_device_ms``), and of the same chain in a 4-warp
+    block on every SM (``grid_chain_device_ms``). The chains are checked
+    against x[idx] first."""
+    from hotformerloc_torch.ops.kernels.constructs import (
+        FLOOR_GRID, floor_chain, floor_chain_reference, floor_empty)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(0, 1, (FLOOR_ROWS, 4)).astype(
+        np.float32)).to(dev)
+    threads, blocks = FLOOR_GRID
+    idx = {n: torch.from_numpy(rng.integers(0, FLOOR_ROWS, (n,)).astype(
+        np.int32)).to(dev) for n in (32, threads * blocks)}
+    runs = {"empty": lambda: floor_empty(x),
+            "warp_chain": lambda: floor_chain(x, idx[32], 32),
+            "grid_chain": lambda: floor_chain(x, idx[threads * blocks],
+                                              threads)}
+    ln = {"probe": "launch_floor", "construct": "floor", "ok": True,
+          "grid": {"threads": threads, "blocks": blocks}}
+    for name, fn in runs.items():
+        out = fn()
+        if name != "empty":
+            check_equal(f"floor_{name}", out,
+                        floor_chain_reference(x, idx[out.shape[0]]))
+        ln[f"{name}_device_ms"] = device_ms(fn, iters=reps)
+    return ln
 
 
 def gather_inputs() -> list:

@@ -29,7 +29,13 @@ held against the JAX package:
 * the yardsticks the tools time beside each kernel (one PyTorch call of
   the same function) compute the kernel's function, and the bound
   helper takes the larger of the byte and operation times;
-* the profiling helpers time, trace, count parameters and FLOPs.
+* the profiling helpers time, trace, count parameters and FLOPs;
+* onehot4d's and pad's launch plans (onehot_plan, pad_plan) cover every
+  output unit once, emulating the kernels' index arithmetic, and the
+  emulated outputs equal the plain versions exactly (indices -1, R and
+  2^31 - 1; H 16, 8, 6, 1; G 0, 1, 2; K 48, 7, 1); both plans refuse
+  what the kernels' entry points refuse, and the floor kernels' wrappers
+  refuse the CPU.
 
 The kernels themselves run only on the card (chip_smoke.py's probes
 phase holds each against its plain version there).
@@ -647,3 +653,145 @@ def test_probe_ab_reads_every_tool_run():
                                     cons)) == ["softmax"]
     assert probe_ab.tool_lines("gather_bench", [], {"results": {
         "pl_take": {}}}) == {"pl_take": {}}
+
+
+# -- onehot4d and pad on their plans ------------------------------------------
+
+
+def emulate_onehot(idx, tab, plan):
+    """onehot4d_kernel's index arithmetic in numpy: (the (rows, H) output
+    it writes, how often it writes each unit), after checking that every
+    lane finds its unit's row and place and that the row's index was read
+    by a lane of its warp (at most 32 rows a warp)."""
+    rows, (R, H) = idx.size, tab.shape
+    vec, U = plan["vec"], plan["per_lane"]
+    u = H // vec
+    total = rows * u
+    tv = kcon.onehot4d_reference(torch.arange(R, dtype=torch.int32),
+                                 torch.from_numpy(tab)).numpy()
+    tv = tv.reshape(R * u, vec)
+    out = np.full((total, vec), np.nan, np.float32)
+    seen = np.zeros(total, int)
+    lane = np.arange(32)
+    q32, r32 = divmod(32, u)
+    flat = idx.reshape(-1).astype(np.int64)
+    for w in range(plan["blocks"] * plan["threads"] // 32):
+        s = w * 32 * U
+        if s >= total:
+            continue
+        row0, lead = divmod(s, u)
+        read = (lane * u <= lead + 32 * U - 1) & ((row0 + lane) * u < total)
+        r = np.where(read, flat[np.minimum(row0 + lane, rows - 1)], -1)
+        rel, v = (lead + lane) // u, (lead + lane) % u
+        for k in range(U):
+            f = s + lane + 32 * k
+            m = f < total
+            assert (rel[m] < 32).all() and read[rel[m]].all()
+            assert (rel[m] == f[m] // u - row0).all()
+            assert (v[m] == f[m] % u).all()
+            sr = r[rel & 31]
+            on = m & (sr >= 0) & (sr < R)
+            out[f[m]] = 0.0
+            out[f[on]] = tv[sr[on] * u + v[on]]
+            seen[f[m]] += 1
+            v, rel = v + r32, rel + q32
+            rel, v = np.where(v >= u, rel + 1, rel), np.where(
+                v >= u, v - u, v)
+    return out.reshape(rows, H), seen
+
+
+# (rows, H): the probe's, H 8, 6, 1, 12, 3, 64, 2, 40, a single row
+ONEHOT_PLAN_SHAPES = [(8 * 48 * 48, 16), (333, 8), (1000, 6), (777, 1),
+                      (50, 12), (7, 3), (5000, 64), (4097, 2), (100, 40),
+                      (1, 16)]
+
+
+@pytest.mark.parametrize("rows,H", ONEHOT_PLAN_SHAPES)
+def test_onehot_plan_covers_units_once(rows, H):
+    plan = kcon.onehot_plan(rows, H)
+    vec, U, bw = plan["vec"], plan["per_lane"], kgather.BLOCK_WARPS
+    assert vec == (4 if H % 4 == 0 else 1) and plan["threads"] == 32 * bw
+    u = H // vec
+    assert U in kgather.TAKE_PER_LANE and 32 * U < 31 * u + 2
+    assert plan["blocks"] == -(-(-(-rows * u // (32 * U))) // bw)
+    if rows * u >= 32 * bw * kgather.SMS:       # every SM a block
+        assert plan["blocks"] >= kgather.SMS
+    R = 231
+    rng = np.random.default_rng(rows + H)
+    tab = rng.normal(0, 1, (R, H)).astype(np.float32)
+    idx = rng.integers(-2, R + 2, (rows,)).astype(np.int32)
+    idx[:4] = [-1, R, 2 ** 31 - 1, R - 1][:rows]
+    out, seen = emulate_onehot(idx, tab, plan)
+    assert (seen == 1).all()
+    want = kcon.onehot4d(torch.from_numpy(idx), torch.from_numpy(tab))
+    assert np.array_equal(out, want.numpy())     # the plain version
+
+
+def emulate_pad(b, G, plan):
+    """pad_kernel's index arithmetic in numpy, a thread a 16-byte vector
+    (the last one the tail): (the output it writes, how often it writes
+    each float)."""
+    WT, K, _ = b.shape
+    P = K + G
+    total = WT * P * P
+    out = np.full(total, np.nan, np.float32)
+    seen = np.zeros(total, int)
+    src = b.reshape(-1)
+    f0 = 4 * np.arange(plan["blocks"] * plan["threads"])
+    live = f0 < total
+    w, rem = f0 // (P * P), f0 % (P * P)
+    r, j = rem // P, rem % P
+    for e in range(4):
+        f = f0 + e
+        m = live & (f < total)
+        inside = (r >= G) & (j >= G)
+        at = np.where(inside, (w * K + r - G) * K + j - G, 0)
+        vals = np.where(inside, src[np.minimum(at, src.size - 1)], 0.0)
+        out[f[m]] = vals[m]
+        seen[f[m]] += 1
+        j = j + 1
+        r, j = np.where(j == P, r + 1, r), np.where(j == P, 0, j)
+        w, r = np.where(r == P, w + 1, w), np.where(r == P, 0, r)
+    return out.reshape(WT, P, P), seen
+
+
+# (WT, K, G): the probe's, G 0 and 2, odd K, one window, K 1, a tail
+PAD_PLAN_SHAPES = [(8, 48, 1), (8, 48, 0), (8, 48, 2), (3, 7, 1),
+                   (1, 5, 2), (1, 48, 1), (5, 1, 1), (2, 7, 0), (1, 1, 0),
+                   (13, 9, 2)]
+
+
+@pytest.mark.parametrize("WT,K,G", PAD_PLAN_SHAPES)
+def test_pad_plan_covers_output_once(WT, K, G):
+    plan = kcon.pad_plan(WT, K, G)
+    total = WT * (K + G) ** 2
+    assert (plan["vectors"], plan["tail"]) == divmod(total, 4)
+    assert plan["threads"] == 32 * kgather.BLOCK_WARPS
+    writers = plan["vectors"] + (plan["tail"] > 0)
+    assert (plan["blocks"] - 1) * plan["threads"] < writers \
+        <= plan["blocks"] * plan["threads"]
+    b = np.random.default_rng(WT * K + G).normal(
+        0, 1, (WT, K, K)).astype(np.float32)
+    out, seen = emulate_pad(b, G, plan)
+    assert (seen == 1).all()
+    want = kcon.pad(torch.from_numpy(b), G)          # the plain version
+    assert np.array_equal(out, want.numpy())
+
+
+def test_onehot_and_pad_plans_refuse_what_the_kernels_refuse():
+    for rows, H in ((0, 16), (10, 0), (2 ** 27, 16), (2 ** 31, 1)):
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.onehot_plan(rows, H)
+    assert kcon.onehot_plan(2 ** 27 - 1, 16)["vec"] == 4
+    for WT, K, G in ((0, 48, 1), (8, 0, 1), (8, 48, -1),
+                     (2 ** 20, 46, 2)):
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.pad_plan(WT, K, G)
+
+
+def test_floor_kernels_are_card_only():
+    x = torch.zeros(64, 4)
+    with pytest.raises(ValueError, match="measured on the card"):
+        kcon.floor_empty(x)
+    with pytest.raises(ValueError, match="measured on the card"):
+        kcon.floor_chain(x, torch.zeros(32, dtype=torch.int32), 32)
