@@ -230,14 +230,19 @@ script exits non-zero without the final line:
    dtab_cluster_kernel, bulk copies and cluster barriers in
    dwconv_resident_kernel, and in take_rows_kernel the index broadcast
    by shuffle, streaming stores and row loads through L1; softmax_kernel
-   streaming stores and butterfly shuffles. Then ``redesign_checks``
+   streaming stores and butterfly shuffles; 16-byte streaming stores in
+   onehot4d, pad, reshape, selloop and slicestore, 16-byte loads in
+   reshape and slicestore, and the table shuffled to the indices in
+   selloop. Then ``redesign_checks``
    holds the kernels redesigned in PR 15 against their plain versions
    beyond the tools' shapes: take_rows exactly at B > 1 on strided
    indices with -1 and Nx among them (fp32 and bf16 rows of 256), on
    rows of 9 vectors (bf16 C = 72, fp32 C = 36; flat and B > 1) and of
    one vector; the softmax at L = 1, 31, 32, 33, 49, 64, 65 and 1024 with
-   -1e9 entries and one large entry, within 1e-5 max |plain| (T1 and
-   T4's shapes are the tools' own, held exactly there). The
+   -1e9 entries and one large entry, within 1e-5 max |plain|; onehot4d,
+   pad, reshape, selloop and slicestore bit for bit at edge indices and
+   values, tails and misaligned views (T1 and T4's shapes are the tools'
+   own, held exactly there). The
    tools hold every kernel against its plain version (take_rows and the
    copy-like constructs bit for bit, dwconv_resident within one bf16 ulp
    / 1e-5 at fp32, the products, softmax and dtab to a relative 1e-5),
@@ -3467,12 +3472,24 @@ SASS_WANT["constructs"]["softmax_kernel"] = {"STG.E.EF": True,
 SASS_WANT["constructs"]["onehot4d_kernel"] = {
     "STG.E.EF.128": True, "SHFL.IDX": True, "LDG.E.128.CONSTANT": True}
 SASS_WANT["constructs"]["pad_kernel"] = {"STG.E.EF.128": True}
+SASS_WANT["constructs"]["reshape_kernel"] = {"STG.E.EF.128": True,
+                                             "LDG.E.NA.128": True}
+SASS_WANT["constructs"]["slicestore_kernel"] = {"STG.E.EF.128": True,
+                                                "LDG.E.NA.128": True}
+SASS_WANT["constructs"]["selloop_kernel"] = {"STG.E.EF.128": True,
+                                             "SHFL.IDX": True}
 # redesign_checks' softmax row lengths
 SOFTMAX_CHECK_L = (1, 31, 32, 33, 49, 64, 65, 1024)
 # redesign_checks' onehot4d (rows, H) and pad (WT, K, G) cases
 ONEHOT_CHECK = ((18432, 16), (1000, 6), (777, 1), (333, 8), (50, 12))
 PAD_CHECK = ((8, 48, 1), (8, 48, 0), (8, 48, 2), (3, 7, 1), (1, 5, 2),
              (1, 48, 1), (5, 1, 1))
+# redesign_checks' reshape and selloop lengths, selloop's nsel, and
+# slicestore's (rows, C, width)
+FLAT_CHECK_N = (18432, 1, 5, 4099)
+SELLOOP_CHECK_NSEL = (1, 4, 32, 33, 77)
+SLICESTORE_CHECK = ((392, 256, 32), (392, 256, 5), (7, 256, 24),
+                    (9, 36, 24), (13, 8, 8), (3, 40, 16))
 
 
 def redesign_checks(torch):
@@ -3480,7 +3497,8 @@ def redesign_checks(torch):
     card beyond the probe tools' shapes: take_rows bit for bit, the
     softmax within 1e-5 max |plain|, onehot4d (indices -1, R, 2^31 - 1
     among valid ones; H 16, 6, 1, 8, 12) and pad (G 0, 1, 2; odd K; one
-    window; a tail of fewer than 4 floats) bit for bit.
+    window; a tail of fewer than 4 floats) bit for bit, then
+    ``flat_redesign_checks``.
     Returns {case: max |kernel - plain|}; raises on a miss. Its launches
     precede the tools' counted runs."""
     from hotformerloc_torch.ops.kernels import constructs as kcon
@@ -3544,6 +3562,61 @@ def redesign_checks(torch):
             raise AssertionError(f"pad WT={WT} K={K} G={G}: differs from "
                                  f"its plain version")
         errs[f"pad_WT{WT}_K{K}_G{G}"] = 0.0
+    errs.update(flat_redesign_checks(torch, rng))
+    return errs
+
+
+def flat_redesign_checks(torch, rng):
+    """reshape, selloop and slicestore against their plain versions on the
+    card, bit for bit, beyond the probe's shapes: tails, one value, a view
+    one element off 16-byte alignment (vec = 1); reshape at +-(2^24 + 1),
+    -2^31, 2^31 - 1; selloop at nsel 1 to 77 with indices -1, nsel and
+    2^31 - 1 and -0.0 and NaN table entries; slicestore at widths and C
+    off a multiple of 8 and a value that doubles to inf."""
+    from hotformerloc_torch.ops.kernels import constructs as kcon
+
+    dev = torch.device("cuda")
+    errs = {}
+
+    def same(name, out, ref):
+        torch.cuda.synchronize()
+        bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        if out.shape != ref.shape or out.dtype != ref.dtype or not \
+                torch.equal(out.view(bits[out.dtype]),
+                            ref.view(bits[ref.dtype])):
+            raise AssertionError(f"{name}: differs from its plain version")
+        errs[name] = 0.0
+
+    for n in FLAT_CHECK_N:
+        a = rng.integers(-2 ** 31, 2 ** 31, (n + 1,), dtype=np.int64)
+        a[:4] = [2 ** 24 + 1, -(2 ** 24 + 1), -2 ** 31, 2 ** 31 - 1][:n + 1]
+        whole = torch.from_numpy(a.astype(np.int32)).to(dev)
+        for tag, t in (("", whole[:n]), ("_off", whole[1:])):
+            same(f"reshape_n{n}{tag}", kcon.reshape(t),
+                 kcon.reshape_reference(t))
+        for nsel in SELLOOP_CHECK_NSEL:
+            tab = rng.normal(0, 1, (nsel + 2, 3)).astype(np.float32)
+            tab[0, 0] = -0.0
+            tab[nsel // 2, 0] = np.nan
+            tab = torch.from_numpy(tab).to(dev)
+            i = rng.integers(-2, nsel + 2, (n + 1,)).astype(np.int32)
+            i[:4] = [-1, nsel, 2 ** 31 - 1, 0][:n + 1]
+            i[-1] = nsel // 2
+            it = torch.from_numpy(i).to(dev)
+            for tag, t in (("", it[:n]), ("_off", it[1:])):
+                same(f"selloop_n{n}_nsel{nsel}{tag}",
+                     kcon.selloop(t, tab, nsel),
+                     kcon.selloop_reference(t, tab, nsel))
+    for rows, C, width in SLICESTORE_CHECK:
+        a = rng.normal(0, 1, (rows * C + 1,)).astype(np.float32)
+        a[1] = 3.3e38                    # near bf16's max: doubles to inf
+        a[2] = -0.0
+        whole = torch.from_numpy(a).to(dev, torch.bfloat16)
+        for tag, t in (("", whole[:-1]), ("_off", whole[1:])):
+            q = t.view(rows, C)
+            same(f"slicestore_{rows}x{C}_w{width}{tag}",
+                 kcon.slicestore(q, width),
+                 kcon.slicestore_reference(q, width))
     return errs
 
 
@@ -3588,10 +3661,9 @@ def probes_phase(torch):
     from hotformerloc_torch.ops import kernels
     from hotformerloc_torch.ops.kernels import window_attn as kattn
     from hotformerloc_torch.ops.kernels import gather as kgather
-    from hotformerloc_torch.ops.kernels.constructs import (CONSTRUCTS,
-                                                           onehot_plan,
-                                                           pad_plan,
-                                                           softmax_plan)
+    from hotformerloc_torch.ops.kernels.constructs import (
+        CONSTRUCTS, onehot_plan, pad_plan, reshape_plan, selloop_plan,
+        slicestore_plan, softmax_plan)
     from hotformerloc_torch.tools import gather_bench, mosaic_probe
     from hotformerloc_torch.utils import profiling
 
@@ -3610,9 +3682,11 @@ def probes_phase(torch):
     want = {"gather_bench": {"take_rows": per, "dwconv_resident": 3 * per,
                              "octree_dwconv": 2 * per},
             # and the floor line: per kernel a checked call, then
-            # device_ms's warm-up and profiled calls (two floor_chain runs)
+            # device_ms's warm-up and profiled calls (two runs each of
+            # floor_copy and floor_chain)
             "constructs": {**{k: per for k in cons},
                            "construct_floor_empty": 2 + PROBE_REPS,
+                           "construct_floor_copy": 2 * (2 + PROBE_REPS),
                            "construct_floor_chain": 2 * (2 + PROBE_REPS)},
             "gather": {"take_rows": n_take * per},
             "attn": {"window_attn": n_attn * 2 * per,
@@ -3731,7 +3805,17 @@ def probes_phase(torch):
                                     ln["out"][-1])
         elif name == "pad":
             e["plan"] = pad_plan(ln["out"][0], ln["out"][1] - 1, 1)
-        e.update(floor_empty_ms=tools["floor"]["empty_device_ms"],
+        elif name == "reshape":
+            e["plan"] = reshape_plan(math.prod(ln["out"]))
+        elif name == "selloop":
+            e["plan"] = selloop_plan(math.prod(ln["out"]), mosaic_probe.SEL,
+                                     mosaic_probe.H)
+        elif name == "slicestore":
+            e["plan"] = slicestore_plan(math.prod(ln["out"][:-1]),
+                                        mosaic_probe.C, ln["out"][-1])
+        e.update(floor=ln["floor"],
+                 floor_empty_ms=tools["floor"]["empty_device_ms"],
+                 floor_copy_ms=tools["floor"]["grid_copy_device_ms"],
                  floor_chain_ms=tools["floor"]["grid_chain_device_ms"])
         line.append(e)
     return line, tools

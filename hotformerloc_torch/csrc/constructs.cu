@@ -41,17 +41,21 @@
 // no memset, one launch.
 //
 // softmax keeps a row in its warp's registers (softmax_kernel: one read
-// and one expf per value). onehot4d and pad write their outputs as flat
+// and one expf per value). The other five write their outputs as flat
 // runs of 16-byte streaming stores on launch plans from
-// ops/kernels/constructs.py (onehot_plan, pad_plan): onehot4d loads each
-// row's index once and shares it by shuffles, pad finds a vector's four
-// sources with 32-bit arithmetic. The other three are the plainest
-// correct kernel: one thread per output element.
+// ops/kernels/constructs.py (onehot_plan, pad_plan, reshape_plan,
+// selloop_plan, slicestore_plan), with 32-bit offsets: onehot4d loads
+// each row's index once and shares it by shuffles, pad finds a vector's
+// four sources with 32-bit arithmetic, reshape and slicestore load one
+// 16-byte vector a thread, and selloop takes its table off the index's
+// chain (the warp loads the table beside the indices and each index
+// picks its entry by a shuffle).
 //
-// floor_empty_kernel and floor_chain_kernel replace no TPU kernel: they
-// measure the card's floor for the constructs (an empty launch; one
-// dependent load pair, index then the row it names, and a store), which
-// the probe tool reports beside the constructs' times.
+// floor_empty_kernel, floor_copy_kernel and floor_chain_kernel replace no
+// TPU kernel: they measure the card's floor for the constructs (an empty
+// launch; one 16-byte load and a store; one dependent load pair, index
+// then the row it names, and a store), which the probe tool reports
+// beside the constructs' times.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,21 +67,9 @@ namespace cg = cooperative_groups;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
-
-inline unsigned blocks_for(long long n, int threads) {
-  long long b = (n + threads - 1) / threads;
-  if (b > 132 * 32) b = 132 * 32;                     // grid-stride beyond
-  return (unsigned)(b < 1 ? 1 : b);
-}
-
-#define GRID_STRIDE(i, n)                                                    \
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;      \
-       i < (n); i += (long long)gridDim.x * blockDim.x)
 
 // PTX helpers: 16-byte cp.async, ldmatrix and mma.sync.m16n8k16 (row.col,
 // bf16 in, fp32 accumulate). Fragment layouts (g = lane / 4, c = lane % 4):
@@ -244,18 +236,24 @@ cudaError_t launch_product(const void* q, const void* k, void* out, int WT,
   return cudaGetLastError();
 }
 
-__global__ void reshape_kernel(const int* __restrict__ idx,
-                               float* __restrict__ out, long long n) {
-  GRID_STRIDE(i, n) out[i] = (float)idx[i];
-}
-
-// ld.global.nc without L1 allocation: an index read once
+// ld.global.nc without L1 allocation: a value read once
 __device__ __forceinline__ int ld_once(const int* p) {
   int v;
   asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];\n"
                : "=r"(v)
                : "l"(p));
   return v;
+}
+__device__ __forceinline__ uint4 ld_once(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int4 ld_once(const int4* p) {
+  const uint4 v = ld_once(reinterpret_cast<const uint4*>(p));
+  return make_int4((int)v.x, (int)v.y, (int)v.z, (int)v.w);
 }
 // streaming (evict-first) stores: the output is not read again here
 __device__ __forceinline__ void st_stream(float4* p, float4 v) {
@@ -264,6 +262,11 @@ __device__ __forceinline__ void st_stream(float4* p, float4 v) {
                : "memory");
 }
 __device__ __forceinline__ void st_stream(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void st_stream(uint4* p, uint4 v) {
+  asm volatile("st.global.cs.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
 __device__ __forceinline__ float4 round_bf16(float4 v) {
   return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
                      round_bf16(v.w));
@@ -486,13 +489,51 @@ pad_kernel(const float* __restrict__ in, float* __restrict__ out, unsigned K,
   }
 }
 
-// The card's floor for the constructs; neither replaces a TPU kernel.
+// int32 (n,) -> fp32 (n,), rounded to nearest as torch's .float() and
+// jnp's astype (|v| > 2^24 included). VEC = 4: thread t converts the
+// 16-byte vector t, and the thread past the last whole vector the n % 4
+// tail one by one; VEC = 1 (a pointer not 16-byte aligned): a value a
+// thread. Each value is read once (no L1 allocation) and written by a
+// streaming store; offsets are 32-bit (n < 2^31). Bound: 147 KB in and
+// out at the probe, far below a launch, so its floor is one load and one
+// store (the copy floor).
+template <int VEC>
+__global__ void __launch_bounds__(128)
+reshape_kernel(const int* __restrict__ idx, float* __restrict__ out,
+               unsigned n) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned f0 = VEC * t;
+  if (f0 >= n) return;
+  if constexpr (VEC == 4) {
+    if (f0 + 4 <= n) {
+      const int4 v = ld_once(reinterpret_cast<const int4*>(idx) + t);
+      st_stream(reinterpret_cast<float4*>(out) + t,
+                make_float4(__int2float_rn(v.x), __int2float_rn(v.y),
+                            __int2float_rn(v.z), __int2float_rn(v.w)));
+      return;
+    }
+  }
+  for (unsigned f = f0; f < n && f < f0 + VEC; ++f)
+    st_stream(out + f, __int2float_rn(ld_once(idx + f)));
+}
+
+// The card's floor for the constructs; none replaces a TPU kernel.
 // floor_empty_kernel: a launch of one block that does nothing.
+// floor_copy_kernel: per thread one 16-byte load at an address known at
+// launch (without L1 allocation) and one streaming store: the floor of a
+// construct none of whose loads waits on another.
 // floor_chain_kernel: per thread the constructs' shortest dependent
 // chain, an index load (without L1 allocation), the 16-byte row it names
-// (through L1) and one streaming store; launched as one warp, or as one
-// 4-warp block on each SM.
+// (through L1) and one streaming store.
+// The last two are launched as one warp, or as one 4-warp block on each
+// SM.
 __global__ void floor_empty_kernel() {}
+
+__global__ void __launch_bounds__(128)
+floor_copy_kernel(const uint4* __restrict__ x, uint4* __restrict__ out) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  st_stream(out + t, ld_once(x + t));
+}
 
 __global__ void __launch_bounds__(128)
 floor_chain_kernel(const int* __restrict__ idx, const float4* __restrict__ x,
@@ -501,16 +542,63 @@ floor_chain_kernel(const int* __restrict__ idx, const float4* __restrict__ x,
   st_stream(out + t, __ldg(x + ld_once(idx + t)));
 }
 
-__global__ void selloop_kernel(const int* __restrict__ idx,
-                               const float* __restrict__ tab,
-                               float* __restrict__ out, long long n, int nsel,
-                               int H) {
-  GRID_STRIDE(i, n) {
-    const int r = idx[i];
-    float acc = 0.f;
-    for (int s = 0; s < nsel; ++s) acc += (r == s) ? tab[s * H] : 0.f;
-    out[i] = acc;
+// out[i] = 0 + tab[idx[i] * H] where 0 <= idx[i] < nsel, else 0: the TPU
+// body's sum of nsel selects, in which a -0.0 entry comes out +0.0. The
+// table is off the index's chain: lane l of a warp loads entry 32 c + l
+// of chunk c (chunk 0 before the indices, a chunk a round), and each
+// index r takes its entry from lane r & 31 of chunk r >> 5 by a shuffle;
+// no load waits on an index. Thread t writes output vector t as for
+// reshape (VEC 4 or 1, the tail past the last whole vector); every lane
+// of a warp with work takes part in the shuffles. Offsets are 32-bit (n
+// and nsel * H < 2^31). Its floor is the copy floor.
+template <int VEC>
+__global__ void __launch_bounds__(128)
+selloop_kernel(const int* __restrict__ idx, const float* __restrict__ tab,
+               float* __restrict__ out, unsigned n, int nsel, unsigned H) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned lane = threadIdx.x & 31;
+  if (VEC * (t - lane) >= n) return;           // the whole warp together
+  const unsigned f0 = VEC * t;
+  float e = (int)lane < nsel ? __ldg(tab + lane * H) : 0.f;
+  const bool whole = VEC == 4 && f0 + 4 <= n;
+  int r[VEC];
+  if constexpr (VEC == 4) {
+    if (whole) {
+      const int4 v = ld_once(reinterpret_cast<const int4*>(idx) + t);
+      r[0] = v.x;
+      r[1] = v.y;
+      r[2] = v.z;
+      r[3] = v.w;
+    }
   }
+  if (!whole) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      r[k] = f0 + k < n ? ld_once(idx + f0 + k) : -1;
+  }
+  float v[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) v[k] = 0.f;
+  for (int c = 0;;) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float got = __shfl_sync(0xffffffffu, e, r[k] & 31);
+      if (r[k] >= 0 && r[k] < nsel && (r[k] >> 5) == c) v[k] = got;
+    }
+    if (32 * ++c >= nsel) break;
+    const int s = 32 * c + (int)lane;
+    e = s < nsel ? __ldg(tab + (unsigned)s * H) : 0.f;
+  }
+  if constexpr (VEC == 4) {
+    if (whole) {
+      st_stream(reinterpret_cast<float4*>(out) + t,
+                make_float4(0.f + v[0], 0.f + v[1], 0.f + v[2], 0.f + v[3]));
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k)
+    if (f0 + k < n) st_stream(out + f0 + k, 0.f + v[k]);
 }
 
 // One warp a row, P values a lane held in registers (32 * P >= L <=
@@ -563,13 +651,37 @@ cudaError_t launch_softmax(const void* in, void* out, long long rows, int L,
   return cudaGetLastError();
 }
 
-__global__ void slicestore_kernel(const bf16* __restrict__ q,
-                                  bf16* __restrict__ out, long long rows,
-                                  int C, int width) {
-  GRID_STRIDE(i, rows * width) {
-    const long long r = i / width;
-    const int c = (int)(i - r * width);
-    out[i] = __float2bfloat16(bf(q[r * C + c]) * 2.f);
+// 2 x, bf16, two at a time: doubling is exact in bf16 and overflows to
+// inf as the fp32 product rounded to bf16 does
+__device__ __forceinline__ uint32_t twice_bf16x2(uint32_t w) {
+  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w);
+  h = __hmul2(h, __float2bfloat162_rn(2.f));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// out[r, c] = 2 q[r, c] for c < width, bf16. VEC = 8: thread t writes
+// output vector t, 8 values (16 bytes) of row t / u (u = width / 8
+// vectors a row, one 32-bit divide): it loads q's 16 bytes once (no L1
+// allocation), doubles them and writes one streaming store. VEC = 1
+// (width or C not a multiple of 8, or a pointer not 16-byte aligned): a
+// value a thread. total = rows * u units; offsets are 32-bit (rows * C <
+// 2^31). Its floor is the copy floor.
+template <int VEC>
+__global__ void __launch_bounds__(128)
+slicestore_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
+                  unsigned total, unsigned C, unsigned u) {
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const unsigned r = t / u, c = t - r * u;
+  if constexpr (VEC == 8) {
+    uint4 v = ld_once(reinterpret_cast<const uint4*>(q + r * C) + c);
+    v.x = twice_bf16x2(v.x);
+    v.y = twice_bf16x2(v.y);
+    v.z = twice_bf16x2(v.z);
+    v.w = twice_bf16x2(v.w);
+    st_stream(reinterpret_cast<uint4*>(out) + t, v);
+  } else {
+    out[t] = __hmul(q[r * C + c], __float2bfloat16_rn(2.f));
   }
 }
 
@@ -585,12 +697,34 @@ extern "C" int construct_headloop(const void* q, const void* k, void* out,
                                static_cast<cudaStream_t>(stream));
 }
 
-// idx: n int32; out: n fp32.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The plan of reshape and selloop (ops/kernels/constructs.py:reshape_plan,
+// selloop_plan) for n values (1 <= n < 2^31): vec 4 (both pointers
+// 16-byte aligned) or 1, blocks of 128 threads, a thread per vec values.
+inline bool flat_plan_ok(const void* in, const void* out, long long n,
+                         int vec, int threads, long long blocks) {
+  return n >= 1 && n <= 0x7fffffffLL && (vec == 1 || vec == 4) &&
+         (vec == 1 || (aligned16(in) && aligned16(out))) &&
+         threads == 128 && blocks == ((n + vec - 1) / vec + 127) / 128;
+}
+
+// idx: n int32; out: n fp32; launched on the plan of flat_plan_ok,
+// another plan is refused.
 extern "C" int construct_reshape(const void* idx, void* out, long long n,
+                                 int vec, int threads, long long blocks,
                                  void* stream) {
-  reshape_kernel<<<blocks_for(n, 256), 256, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<float*>(out), n);
+  if (!flat_plan_ok(idx, out, n, vec, threads, blocks))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* i = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  if (vec == 4)
+    reshape_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(i, o, (unsigned)n);
+  else
+    reshape_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(i, o, (unsigned)n);
   return cudaGetLastError();
 }
 
@@ -690,6 +824,19 @@ extern "C" int construct_floor_empty(void* stream) {
   return cudaGetLastError();
 }
 
+// x, out: (threads * blocks, 4) fp32, 16-byte aligned. threads is 32 (one
+// warp) or 128 (4-warp blocks).
+extern "C" int construct_floor_copy(const void* x, void* out, int threads,
+                                    int blocks, void* stream) {
+  if ((threads != 32 && threads != 128) || blocks < 1 || !aligned16(x) ||
+      !aligned16(out))
+    return cudaErrorInvalidValue;
+  floor_copy_kernel<<<blocks, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(out));
+  return cudaGetLastError();
+}
+
 // idx: threads * blocks int32 row numbers of x; x: (rows, 4) fp32, 16-byte
 // aligned; out: (threads * blocks, 4) fp32. threads is 32 (one warp) or
 // 128 (4-warp blocks).
@@ -704,13 +851,25 @@ extern "C" int construct_floor_chain(const void* idx, const void* x, void* out,
   return cudaGetLastError();
 }
 
-// idx: n int32; tab: (>= nsel, H) fp32; out: n fp32.
+// idx: n int32; tab: (>= nsel, H) fp32 with nsel * H < 2^31; out: n
+// fp32; launched on the plan of flat_plan_ok, another plan is refused.
 extern "C" int construct_selloop(const void* idx, const void* tab, void* out,
-                                 long long n, int nsel, int H, void* stream) {
-  selloop_kernel<<<blocks_for(n, 256), 256, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), static_cast<const float*>(tab),
-      static_cast<float*>(out), n, nsel, H);
+                                 long long n, int nsel, int H, int vec,
+                                 int threads, long long blocks,
+                                 void* stream) {
+  if (!flat_plan_ok(idx, out, n, vec, threads, blocks) || H < 1 ||
+      (long long)nsel * H > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* i = static_cast<const int*>(idx);
+  const float* t = static_cast<const float*>(tab);
+  float* o = static_cast<float*>(out);
+  if (vec == 4)
+    selloop_kernel<4><<<(unsigned)blocks, threads, 0, s>>>(
+        i, t, o, (unsigned)n, nsel, (unsigned)H);
+  else
+    selloop_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(
+        i, t, o, (unsigned)n, nsel, (unsigned)H);
   return cudaGetLastError();
 }
 
@@ -742,12 +901,31 @@ extern "C" int construct_softmax(const void* in, void* out, long long rows,
   }
 }
 
-// q: (rows, C) bf16; out: (rows, width) bf16.
+// q: (rows, C) bf16; out: (rows, width) bf16, rows * C < 2^31. The plan
+// (ops/kernels/constructs.py:slicestore_plan): vec 8 (width and C
+// multiples of 8, both pointers 16-byte aligned) or 1, blocks of 128
+// threads, a thread per vec values of the output; another plan is
+// refused.
 extern "C" int construct_slicestore(const void* q, void* out, long long rows,
-                                    int C, int width, void* stream) {
-  slicestore_kernel<<<blocks_for(rows * width, 256), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(out), rows, C, width);
+                                    int C, int width, int vec, int threads,
+                                    long long blocks, void* stream) {
+  if (rows < 1 || width < 1 || width > C ||
+      rows * C > 0x7fffffffLL || (vec != 1 && vec != 8) ||
+      (vec == 8 && (width % 8 || C % 8 || !aligned16(q) ||
+                    !aligned16(out))) ||
+      threads != 128)
+    return cudaErrorInvalidValue;
+  const long long u = width / vec, total = rows * u;
+  if (blocks != (total + 127) / 128) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* i = static_cast<const bf16*>(q);
+  bf16* o = static_cast<bf16*>(out);
+  if (vec == 8)
+    slicestore_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
+        i, o, (unsigned)total, (unsigned)C, (unsigned)u);
+  else
+    slicestore_kernel<1><<<(unsigned)blocks, threads, 0, s>>>(
+        i, o, (unsigned)total, (unsigned)C, (unsigned)u);
   return cudaGetLastError();
 }
 

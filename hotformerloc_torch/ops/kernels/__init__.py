@@ -29,7 +29,7 @@ LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
                 "headloop", "reshape", "onehot4d", "dtab", "pad", "selloop",
                 "softmax", "slicestore", "dk", "packbias",
                 # the card's floor for them (mosaic_probe's floor line)
-                "floor_empty", "floor_chain")}}
+                "floor_empty", "floor_copy", "floor_chain")}}
 
 
 def reset_launches() -> None:

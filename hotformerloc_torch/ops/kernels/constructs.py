@@ -10,13 +10,17 @@ of the TPU kernel body in mosaic_probe.py); ``BODIES`` names the kernel
 body each construct runs on the card: the three products share one
 tensor-core body ("tc"), dtab runs as one thread-block cluster
 ("cluster"), softmax holds a row in a warp's registers ("rows",
-``softmax_plan``), onehot4d and pad write flat runs of 16-byte streaming
-stores ("vec", ``onehot_plan``, ``pad_plan``), the other three are one
-thread per output ("simt").
+``softmax_plan``), the other five write flat runs of 16-byte streaming
+stores ("vec": ``onehot_plan``, ``pad_plan``, ``reshape_plan``,
+``selloop_plan``, ``slicestore_plan``). ``FLOOR_OF`` names the card's
+floor that bounds each construct from below: "chain" where a load's
+address is a loaded value (onehot4d), "copy" where every load's address
+is known at launch.
 
-``floor_empty`` and ``floor_chain`` launch the two kernels that measure
-the card's floor for the constructs (an empty launch; a dependent index
-and row load and a store); they replace no TPU kernel.
+``floor_empty``, ``floor_copy`` and ``floor_chain`` launch the three
+kernels that measure the card's floor for the constructs (an empty
+launch; a 16-byte load and a store; a dependent index and row load and
+a store); they replace no TPU kernel.
 """
 from __future__ import annotations
 
@@ -105,12 +109,39 @@ def reshape_reference(idx):
     return idx.reshape(-1, 1).float()
 
 
+def _flat_plan(name: str, n: int, aligned: bool) -> dict:
+    """The plan of reshape and selloop for n values: {"vec": 4 (16-byte
+    vectors) where both pointers are 16-byte aligned, else 1; the
+    ``vectors`` whole vectors and a ``tail`` of fewer than vec values, a
+    thread each (one more thread for the tail), in blocks of
+    ``gather.BLOCK_WARPS`` warps ("threads", "blocks")}."""
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"construct_{name}: no plan for {n} values")
+    vec = 4 if aligned else 1
+    threads, writers = 32 * BLOCK_WARPS, -(-n // vec)
+    return {"vec": vec, "vectors": n // vec, "tail": n % vec,
+            "threads": threads, "blocks": -(-writers // threads)}
+
+
+def reshape_plan(n: int, aligned: bool = True) -> dict:
+    """reshape's launch plan for n int32 values (``_flat_plan``)."""
+    return _flat_plan("reshape", n, aligned)
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def reshape(idx):
+    """int32 (...) -> fp32 (n, 1), rounded to nearest; launched as
+    ``reshape_plan`` says."""
     if not _on_card("reshape", idx, dtypes=(_I32,)):
         return reshape_reference(idx)
     out = torch.empty((idx.numel(), 1), dtype=_F32, device=idx.device)
-    _launch("reshape", [_P, _P, _L], idx, idx.data_ptr(), out.data_ptr(),
-            idx.numel())
+    plan = reshape_plan(idx.numel(), _aligned(idx, out))
+    _launch("reshape", [_P, _P, _L, _I, _I, _L], idx, idx.data_ptr(),
+            out.data_ptr(), idx.numel(), plan["vec"], plan["threads"],
+            plan["blocks"])
     return out
 
 
@@ -253,14 +284,31 @@ def selloop_reference(idx, tab, nsel=4):
     return acc
 
 
+def selloop_plan(n: int, nsel: int = 4, H: int = 1,
+                 aligned: bool = True) -> dict:
+    """selloop's launch plan for n indices into the first column of a
+    (>= nsel, H) table: reshape's (``_flat_plan``); the table's offsets
+    are 32-bit, so nsel * H < 2^31."""
+    if H < 1 or nsel * H >= 2 ** 31:
+        raise ValueError(f"construct_selloop: no plan for {nsel} rows of "
+                         f"{H}")
+    return _flat_plan("selloop", n, aligned)
+
+
 def selloop(idx, tab, nsel=4):
+    """out[...] = tab[idx[...], 0] where 0 <= idx < nsel, else 0 (a -0.0
+    entry as +0.0); idx int32, tab (R, H) fp32; launched as
+    ``selloop_plan`` says."""
     if not _on_card("selloop", idx, tab, dtypes=(_I32, _F32)):
         return selloop_reference(idx, tab, nsel)
-    if tab.shape[0] < nsel:
+    if tab.dim() != 2 or tab.shape[0] < nsel:
         raise ValueError(f"construct_selloop: tab needs {nsel} rows")
     out = torch.empty(idx.shape, dtype=_F32, device=idx.device)
-    _launch("selloop", [_P] * 3 + [_L, _I, _I], idx, idx.data_ptr(),
-            tab.data_ptr(), out.data_ptr(), idx.numel(), nsel, tab.shape[1])
+    plan = selloop_plan(idx.numel(), nsel, tab.shape[1], _aligned(idx, out))
+    _launch("selloop", [_P] * 3 + [_L, _I, _I, _I, _I, _L], idx,
+            idx.data_ptr(), tab.data_ptr(), out.data_ptr(), idx.numel(),
+            nsel, tab.shape[1], plan["vec"], plan["threads"],
+            plan["blocks"])
     return out
 
 
@@ -306,15 +354,34 @@ def slicestore_reference(q, width=32):
     return q[..., :width] * 2.0
 
 
+def slicestore_plan(rows: int, C: int, width: int,
+                    aligned: bool = True) -> dict:
+    """slicestore's launch plan for ``rows`` rows of C bf16, the first
+    ``width`` doubled: {"vec": 8 (16-byte vectors) where width and C are
+    multiples of 8 and both pointers 16-byte aligned, else 1;
+    "per_row": width / vec units; "units": rows * per_row, a thread
+    each, in blocks of ``gather.BLOCK_WARPS`` warps ("threads",
+    "blocks")}. Offsets are 32-bit, so rows * C < 2^31."""
+    if rows < 1 or not 1 <= width <= C or rows * C >= 2 ** 31:
+        raise ValueError(f"construct_slicestore: no plan for {rows} rows "
+                         f"of {C}, width {width}")
+    vec = 8 if aligned and width % 8 == 0 and C % 8 == 0 else 1
+    threads, units = 32 * BLOCK_WARPS, rows * (width // vec)
+    return {"vec": vec, "per_row": width // vec, "units": units,
+            "threads": threads, "blocks": -(-units // threads)}
+
+
 def slicestore(q, width=32):
+    """(..., C) bf16 -> (..., width) bf16, 2 q[..., :width]; launched as
+    ``slicestore_plan`` says."""
     if not _on_card("slicestore", q, dtypes=(_BF,)):
         return slicestore_reference(q, width)
     C = q.shape[-1]
-    if width > C:
-        raise ValueError("construct_slicestore: width above C")
     out = torch.empty((*q.shape[:-1], width), dtype=_BF, device=q.device)
-    _launch("slicestore", [_P, _P, _L, _I, _I], q, q.data_ptr(),
-            out.data_ptr(), q.numel() // C, C, width)
+    plan = slicestore_plan(q.numel() // C, C, width, _aligned(q, out))
+    _launch("slicestore", [_P, _P, _L, _I, _I, _I, _I, _L], q, q.data_ptr(),
+            out.data_ptr(), q.numel() // C, C, width, plan["vec"],
+            plan["threads"], plan["blocks"])
     return out
 
 
@@ -366,9 +433,11 @@ CONSTRUCTS = {
     "dk": (dk, dk_reference, 136),
     "packbias": (packbias, packbias_reference, 146),
 }
-BODIES = {name: "simt" for name in CONSTRUCTS}
+BODIES = {name: "vec" for name in CONSTRUCTS}
 BODIES.update(headloop="tc", packbias="tc", dk="tc", dtab="cluster",
-              softmax="rows", onehot4d="vec", pad="vec")
+              softmax="rows")
+FLOOR_OF = {name: "copy" for name in CONSTRUCTS}
+FLOOR_OF["onehot4d"] = "chain"
 
 
 # -- the card's floor for the constructs (no TPU kernel) --------------------
@@ -379,6 +448,23 @@ def floor_empty(t):
     _check_floor(t)
     _launch("floor_empty", [], t)
     return t
+
+
+def floor_copy(x, threads):
+    """out = x for x (n, 4) fp32, a thread a 16-byte row: one load at an
+    address known at launch and one store each, in blocks of ``threads``
+    (32: one warp; 128: 4-warp blocks) covering x exactly."""
+    _check_floor(x)
+    n = x.shape[0]
+    if x.dim() != 2 or x.shape[1] != 4 or x.dtype != _F32 \
+            or not x.is_contiguous() or threads not in (32, 128) \
+            or n % threads or not n or x.data_ptr() % 16:
+        raise ValueError(f"construct_floor_copy: want x (n, 4) fp32 with "
+                         f"n a multiple of {threads} on the card")
+    out = torch.empty_like(x)
+    _launch("floor_copy", [_P, _P, _I, _I], x, x.data_ptr(), out.data_ptr(),
+            threads, n // threads)
+    return out
 
 
 def floor_chain_reference(x, idx):

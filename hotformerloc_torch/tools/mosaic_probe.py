@@ -22,11 +22,14 @@ writes mosaic_probe_<subcommand>.json there; nothing else is written.
 
   constructs  the ten construct kernels of ops/kernels/constructs.py
               (WT=8, T=49, K=48, C=256, H=16, hd=16, R=231); each line
-              names the kernel body it runs on the card (``body``). On
-              the card one more line, ``floor``, gives the card's floor
-              for them (``floor_line``): the device ms of an empty
-              launch and of a dependent index-and-row load and a store,
-              in one warp and in a 4-warp block on every SM
+              names the kernel body it runs on the card (``body``) and
+              the floor that bounds it from below (``floor``: copy or
+              chain). On the card one more line, ``floor``, gives the
+              card's floor for them (``floor_line``): the device ms of
+              an empty launch, of one 16-byte load and a store (copy)
+              and of a dependent index-and-row load and a store
+              (chain), the last two in one warp and in a 4-warp block
+              on every SM
   gather      take_rows at the JAX tool's six row-gather cases, against
               the numpy oracle x[idx]
   attn        K1 forward, and K1 + K2 for grad(sum(out^2)) with respect
@@ -63,7 +66,7 @@ SEL = 4                        # k_selloop's truncated select loop
 
 # construct -> (the JAX probe's name, exact?). The products, the softmax
 # and the dtab sum are held to a relative 1e-5 (fp32 sums in another
-# order), the copies, pad, reshape, lookup and selects exactly.
+# order), the copies, pad, reshape, lookup and selects bit for bit.
 CONSTRUCT_PROBES = {
     "headloop": ("headloop_1batch_dot_laneslice", False),
     "reshape": ("reshape_3d_to_flatcol", True),
@@ -107,13 +110,21 @@ def to_device(args, dev):
                  for a in args)
 
 
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
 def check_construct(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """Exact or relative 1e-5 (CONSTRUCT_PROBES); returns max |diff|."""
+    """Bit for bit or relative 1e-5 (CONSTRUCT_PROBES); returns max
+    |diff|."""
     exact = CONSTRUCT_PROBES[name][1]
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise AssertionError(f"construct_{name}: {out.dtype} "
                              f"{tuple(out.shape)} vs {ref.dtype} "
                              f"{tuple(ref.shape)}")
+    if exact and not torch.equal(out.contiguous().view(_BITS[out.dtype]),
+                                 ref.contiguous().view(_BITS[ref.dtype])):
+        raise AssertionError(f"construct_{name}: differs from its plain "
+                             f"version in its bits")
     err = float((out.float() - ref.float()).abs().max())
     lim = 0.0 if exact else 1e-5 * float(ref.float().abs().max())
     if not (err <= lim and torch.isfinite(out.float()).all()):
@@ -186,7 +197,9 @@ def construct_library(name: str, args: tuple):
 
 
 def constructs(dev, reps):
-    from hotformerloc_torch.ops.kernels.constructs import BODIES, CONSTRUCTS
+    from hotformerloc_torch.ops.kernels.constructs import (BODIES,
+                                                           CONSTRUCTS,
+                                                           FLOOR_OF)
 
     lines = []
     for name, args in construct_inputs().items():
@@ -198,7 +211,8 @@ def constructs(dev, reps):
         if lib is not None:              # the yardstick computes the same
             check_construct(name, lib().reshape(out.shape), out)
         lines.append({"probe": CONSTRUCT_PROBES[name][0], "construct": name,
-                      "body": BODIES[name], "ok": True, "maxdiff": err,
+                      "body": BODIES[name], "floor": FLOOR_OF[name],
+                      "ok": True, "maxdiff": err,
                       "out": list(out.shape),
                       "dtype": str(out.dtype).split(".")[1],
                       **timing(dev, lambda: fn(*a), reps),
@@ -215,29 +229,38 @@ FLOOR_ROWS = 4224              # floor_chain's table: rows of 16 bytes
 def floor_line(dev, reps):
     """The card's floor for the constructs, on the card only: the device
     ms (``device_ms``, as the constructs' lines) of the empty kernel
-    (``empty_device_ms``), of one warp's dependent index and row load and
-    store (``warp_chain_device_ms``), and of the same chain in a 4-warp
-    block on every SM (``grid_chain_device_ms``). The chains are checked
-    against x[idx] first."""
+    (``empty_device_ms``), of one warp's 16-byte load and store
+    (``warp_copy_device_ms``) and dependent index and row load and store
+    (``warp_chain_device_ms``), and of the same copy and chain in a
+    4-warp block on every SM (``grid_copy_device_ms``,
+    ``grid_chain_device_ms``). The copies are checked against x and the
+    chains against x[idx] first, bit for bit."""
     from hotformerloc_torch.ops.kernels.constructs import (
-        FLOOR_GRID, floor_chain, floor_chain_reference, floor_empty)
+        FLOOR_GRID, floor_chain, floor_chain_reference, floor_copy,
+        floor_empty)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(0, 1, (FLOOR_ROWS, 4)).astype(
         np.float32)).to(dev)
     threads, blocks = FLOOR_GRID
     idx = {n: torch.from_numpy(rng.integers(0, FLOOR_ROWS, (n,)).astype(
         np.int32)).to(dev) for n in (32, threads * blocks)}
-    runs = {"empty": lambda: floor_empty(x),
-            "warp_chain": lambda: floor_chain(x, idx[32], 32),
-            "grid_chain": lambda: floor_chain(x, idx[threads * blocks],
-                                              threads)}
+    xc = {n: torch.from_numpy(rng.normal(0, 1, (n, 4)).astype(
+        np.float32)).to(dev) for n in (32, threads * blocks)}
+    runs = {"empty": (lambda: floor_empty(x), None),
+            "warp_copy": (lambda: floor_copy(xc[32], 32), xc[32]),
+            "grid_copy": (lambda: floor_copy(xc[threads * blocks], threads),
+                          xc[threads * blocks]),
+            "warp_chain": (lambda: floor_chain(x, idx[32], 32),
+                           floor_chain_reference(x, idx[32])),
+            "grid_chain": (lambda: floor_chain(x, idx[threads * blocks],
+                                               threads),
+                           floor_chain_reference(x, idx[threads * blocks]))}
     ln = {"probe": "launch_floor", "construct": "floor", "ok": True,
           "grid": {"threads": threads, "blocks": blocks}}
-    for name, fn in runs.items():
+    for name, (fn, want) in runs.items():
         out = fn()
-        if name != "empty":
-            check_equal(f"floor_{name}", out,
-                        floor_chain_reference(x, idx[out.shape[0]]))
+        if want is not None:
+            check_equal(f"floor_{name}", out, want)
         ln[f"{name}_device_ms"] = device_ms(fn, iters=reps)
     return ln
 

@@ -12,8 +12,9 @@ the card hits both sides alike, and writes every run's lines under
 each run (``device_ms``; on the CPU ``cpu_ms``), beside the lines'
 library, plain and bound times from the same runs, and the median of
 each over the runs (``median``). The constructs' ``floor`` line (the
-card's floor: ``*_chain_device_ms``, ``empty_device_ms``) comes from the
-checkouts whose tool prints it.
+card's floor: ``empty_device_ms``, ``*_copy_device_ms``,
+``*_chain_device_ms``) comes from the checkouts whose tool prints each
+key.
 
     python -m hotformerloc_torch.tools.probe_ab --a PARENT_DIR --b . \\
         --out ab_out
@@ -34,7 +35,8 @@ TOOLS = (("gather_bench", []), ("mosaic_probe", ["constructs"]),
 # the numbers of a tool's line kept per run
 KEYS = ("device_ms", "cpu_ms", "library_device_ms", "plain_device_ms",
         "bound_ms", "cluster", "slice", "active_clusters", "body",
-        "empty_device_ms", "warp_chain_device_ms", "grid_chain_device_ms")
+        "empty_device_ms", "warp_copy_device_ms", "grid_copy_device_ms",
+        "warp_chain_device_ms", "grid_chain_device_ms")
 
 
 def out_file(tool: str, argv: list) -> str:

@@ -795,3 +795,224 @@ def test_floor_kernels_are_card_only():
         kcon.floor_empty(x)
     with pytest.raises(ValueError, match="measured on the card"):
         kcon.floor_chain(x, torch.zeros(32, dtype=torch.int32), 32)
+
+
+# -- reshape, selloop and slicestore on their plans ---------------------------
+
+
+def emulate_flat(n, plan):
+    """reshape_kernel's and selloop_kernel's index arithmetic in numpy, a
+    thread a vector of vec values (the thread past the last whole vector
+    the tail): (the source index of each output value, how often each is
+    written)."""
+    vec, T = plan["vec"], plan["blocks"] * plan["threads"]
+    src = np.full(n, -1, np.int64)
+    seen = np.zeros(n, int)
+    f0 = vec * np.arange(T, dtype=np.int64)
+    for k in range(vec):                  # a whole vector, or the tail
+        f = f0 + k
+        m = f < n
+        src[f[m]] = f[m]
+        seen[f[m]] += 1
+    return src, seen
+
+
+def emulate_selloop(idx, tab, nsel, plan):
+    """selloop_kernel in numpy: a warp with work loads chunk c of the table
+    (lane l: entry 32 c + l) and each index r takes lane r & 31 of chunk
+    r >> 5; returns (the output it writes, how often it writes each
+    value)."""
+    n, H = idx.size, tab.shape[1]
+    vec, T = plan["vec"], plan["blocks"] * plan["threads"]
+    flat_tab = tab.reshape(-1)
+    t = np.arange(T, dtype=np.int64)
+    lane = t % 32
+    live_warp = vec * (t - lane) < n
+    f0 = vec * t
+    flat = idx.reshape(-1)
+    r = np.full((T, vec), -1, np.int64)
+    for k in range(vec):
+        ok = f0 + k < n
+        r[ok, k] = flat[f0[ok] + k]
+    v = np.zeros((T, vec), np.float32)
+    for c in range(max(1, -(-nsel // 32))):
+        s = 32 * c + np.arange(32)
+        e = np.where(s < nsel, flat_tab[np.minimum(s, nsel - 1).clip(0) * H],
+                     0.0).astype(np.float32)
+        got = e[r & 31]
+        pick = (r >= 0) & (r < nsel) & (r >> 5 == c) & live_warp[:, None]
+        assert (s[r[pick] & 31] == r[pick]).all()    # lane holds entry r
+        v = np.where(pick, got, v)
+    out = np.full(n, np.nan, np.float32)
+    seen = np.zeros(n, int)
+    for k in range(vec):
+        f = f0 + k
+        m = live_warp & (f < n)
+        out[f[m]] = np.float32(0.0) + v[m, k]
+        seen[f[m]] += 1
+    return out, seen
+
+
+# (n, aligned): the probe's, tails of 3 and 1, one value, 5, vec = 1
+RESHAPE_PLAN_CASES = [(18432, True), (18435, True), (4097, True), (1, True),
+                      (5, True), (18432, False)]
+
+
+@pytest.mark.parametrize("n,aligned", RESHAPE_PLAN_CASES)
+def test_reshape_plan_covers_values_once(n, aligned):
+    plan = kcon.reshape_plan(n, aligned)
+    vec = plan["vec"]
+    assert vec == (4 if aligned else 1)
+    assert (plan["vectors"], plan["tail"]) == divmod(n, vec)
+    assert plan["threads"] == 32 * kgather.BLOCK_WARPS
+    writers = -(-n // vec)
+    assert (plan["blocks"] - 1) * plan["threads"] < writers \
+        <= plan["blocks"] * plan["threads"]
+    if (n, aligned) == (18432, True):      # the probe's: 4608 threads
+        assert plan["blocks"] == 36
+    src, seen = emulate_flat(n, plan)
+    assert (seen == 1).all() and (src == np.arange(n)).all()
+    idx = np.random.default_rng(n).integers(-2 ** 31, 2 ** 31, (n,),
+                                            dtype=np.int64).astype(np.int32)
+    out = idx[src].astype(np.float32)     # round to nearest, as the kernel
+    want = kcon.reshape(torch.from_numpy(idx))        # the plain version
+    assert np.array_equal(out.view(np.int32),
+                          want.numpy().reshape(-1).view(np.int32))
+
+
+# (n, nsel, aligned): the probe's, a chunk of 32 and one past it, 77 (three
+# chunks), no selects, one value, a tail, vec = 1
+SELLOOP_PLAN_CASES = [(18432, 4, True), (18432, 32, True), (5, 33, True),
+                      (4099, 77, True), (7, 0, True), (1, 1, True),
+                      (18432, 4, False)]
+
+
+@pytest.mark.parametrize("n,nsel,aligned", SELLOOP_PLAN_CASES)
+def test_selloop_plan_covers_values_once(n, nsel, aligned):
+    H = 3
+    plan = kcon.selloop_plan(n, nsel, H, aligned)
+    assert plan == kcon.reshape_plan(n, aligned)
+    rng = np.random.default_rng(n + nsel)
+    tab = rng.normal(0, 1, (nsel + 2, H)).astype(np.float32)
+    tab[0, 0] = -0.0
+    idx = rng.integers(-2, nsel + 2, (n,)).astype(np.int32)
+    idx[:4] = [-1, nsel, 2 ** 31 - 1, 0][:n]
+    out, seen = emulate_selloop(idx, tab, nsel, plan)
+    assert (seen == 1).all()
+    want = kcon.selloop(torch.from_numpy(idx), torch.from_numpy(tab), nsel)
+    assert np.array_equal(out.view(np.int32), want.numpy().view(np.int32))
+
+
+def emulate_slicestore(rows, C, width, plan):
+    """slicestore_kernel's index arithmetic in numpy, a thread a unit of
+    vec values (row t // u, unit t % u): (the flat source in q of each
+    output value, how often each is written)."""
+    vec, u = plan["vec"], plan["per_row"]
+    src = np.full(rows * width, -1, np.int64)
+    seen = np.zeros(rows * width, int)
+    t = np.arange(plan["blocks"] * plan["threads"], dtype=np.int64)
+    t = t[t < plan["units"]]
+    r, c = t // u, t % u
+    for k in range(vec):
+        f = vec * t + k
+        src[f] = r * C + vec * c + k
+        seen[f] += 1
+    return src, seen
+
+
+# (rows, C, width, aligned): the probe's, width 5, 24 of 256, C = 36 (not
+# a multiple of 8), width = C = 8, unaligned, a single value
+SLICESTORE_PLAN_CASES = [(392, 256, 32, True), (392, 256, 5, True),
+                         (7, 256, 24, True), (9, 36, 24, True),
+                         (13, 8, 8, True), (3, 40, 16, False),
+                         (1, 8, 1, True)]
+
+
+@pytest.mark.parametrize("rows,C,width,aligned", SLICESTORE_PLAN_CASES)
+def test_slicestore_plan_covers_output_once(rows, C, width, aligned):
+    plan = kcon.slicestore_plan(rows, C, width, aligned)
+    vec = plan["vec"]
+    assert vec == (8 if aligned and width % 8 == 0 and C % 8 == 0 else 1)
+    assert plan["per_row"] * vec == width
+    assert plan["units"] == rows * width // vec
+    assert plan["threads"] == 32 * kgather.BLOCK_WARPS
+    assert (plan["blocks"] - 1) * plan["threads"] < plan["units"] \
+        <= plan["blocks"] * plan["threads"]
+    if (rows, C, width) == (392, 256, 32):    # the probe's: 1568 threads
+        assert (plan["units"], plan["blocks"]) == (1568, 13)
+    src, seen = emulate_slicestore(rows, C, width, plan)
+    assert (seen == 1).all()
+    q = torch.from_numpy(np.random.default_rng(rows * C + width).normal(
+        0, 1, (rows, C)).astype(np.float32)).to(torch.bfloat16)
+    out = (q.reshape(-1)[torch.from_numpy(src)] * 2.0).reshape(rows, width)
+    want = kcon.slicestore(q, width)                 # the plain version
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+def test_flat_plans_refuse_what_the_kernels_refuse():
+    for n in (0, -1, 2 ** 31):
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.reshape_plan(n)
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.selloop_plan(n)
+    assert kcon.reshape_plan(2 ** 31 - 1)["blocks"] == -(-(2 ** 29) // 128)
+    for nsel, H in ((2 ** 30, 2), (4, 0), (2 ** 31, 1)):
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.selloop_plan(10, nsel, H)
+    for rows, C, width in ((0, 256, 32), (392, 256, 0), (392, 256, 257),
+                           (2 ** 23, 256, 32)):
+        with pytest.raises(ValueError, match="no plan"):
+            kcon.slicestore_plan(rows, C, width)
+    assert kcon.slicestore_plan(2 ** 23 - 1, 256, 32)["vec"] == 8
+
+
+def _same_bits(out, want):
+    o = out.numpy()
+    w = np.asarray(want)
+    assert o.shape == w.shape and o.dtype.itemsize == w.dtype.itemsize
+    bits = {4: np.int32, 2: np.int16}[o.dtype.itemsize]
+    assert np.array_equal(o.view(bits), w.view(bits))
+
+
+def test_reshape_reference_matches_jnp_at_int32_edges():
+    idx = np.random.default_rng(17).integers(
+        -2 ** 31, 2 ** 31, (2, 5, 5), dtype=np.int64).astype(np.int32)
+    idx.reshape(-1)[:6] = [2 ** 24 + 1, -(2 ** 24 + 1), -2 ** 31,
+                           2 ** 31 - 1, 2 ** 24 + 3, 0]
+    t = torch.from_numpy(idx)
+    _same_bits(kcon.reshape(t), _jnp_construct("reshape", (t,)))
+
+
+@pytest.mark.parametrize("nsel", [1, 4, 32, 33, 77])
+def test_selloop_reference_matches_jnp_at_edges(nsel):
+    rng = np.random.default_rng(nsel)
+    tab = rng.normal(0, 1, (nsel + 3, 5)).astype(np.float32)
+    tab[0, 0] = -0.0
+    tab[nsel - 1, 0] = np.nan if nsel > 1 else tab[nsel - 1, 0]
+    idx = rng.integers(-2, nsel + 2, (2, 6, 6)).astype(np.int32)
+    idx.reshape(-1)[:6] = [-1, nsel, 2 ** 31 - 1, 0, nsel - 1, -2 ** 31]
+    it, tt = torch.from_numpy(idx), torch.from_numpy(tab)
+    out = kcon.selloop(it, tt, nsel)
+    flat = out.numpy().reshape(-1)
+    assert (flat[[0, 1, 2, 5]] == 0).all()    # off the table
+    assert flat[3] == 0 and not np.signbit(flat[3])    # -0.0 comes out +0
+    assert np.isnan(flat[4]) == (nsel > 1)
+    _same_bits(out, _jnp_construct("selloop", (it, tt, nsel)))
+
+
+@pytest.mark.parametrize("width", [32, 5])
+def test_slicestore_reference_matches_jnp_near_bf16_max(width):
+    a = np.random.default_rng(width).normal(0, 1, (2, 7, 40)).astype(
+        np.float32)
+    # no subnormal: XLA on the CPU flushes them to zero, torch keeps them
+    a[0, 0, :4] = [3.3e38, -3.3e38, -0.0, 1e-30]
+    q = torch.from_numpy(a).to(torch.bfloat16)
+    out = kcon.slicestore(q, width)
+    assert torch.isinf(out[0, 0, :2].float()).all()
+    _same_bits(out.view(torch.int16), np.asarray(
+        _jnp_construct("slicestore", (q, width))).view(np.int16))
+
+
+def test_floor_copy_is_card_only():
+    with pytest.raises(ValueError, match="measured on the card"):
+        kcon.floor_copy(torch.zeros(32, 4), 32)
