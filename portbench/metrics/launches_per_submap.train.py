@@ -1,0 +1,9 @@
+"""launches_per_submap.train: device kernel launches in the traced
+sub-window per submap (copies and fills left out). Layer: the entry's
+Python dispatch."""
+
+
+def read(s):
+    if s.get("entry") != "train" or not s.get("submaps"):
+        return None
+    return s["kernels"] / s["submaps"]
