@@ -264,6 +264,11 @@ script exits non-zero without the final line:
    calls of scatter_add, index_add and gather's backward; the down-convs
    differentiate no gather (their backward reads the inverse tables), so
    the step may hold one gather_backward (the loss's top-k) and no more.
+8d. spans (spans_phase; after the probes for the same reason): the
+   slice's bf16 embed under torch.profiler with the program's spans on
+   and off: no device event is a range kineto draws for a span (a user
+   annotation), both launch the same kernels, and the hfl.* spans take
+   >= 99% of the kernel time.
 6h. prep (host only): the dataset-preparation CLIs, each in a process
    of its own, on synthetic raw trees under .chip_tmp/prep, each checked
    against the ground truth its tree was built with, and timed:
@@ -791,8 +796,8 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
             if norm_err > 1e-4:
                 raise AssertionError(f"{tag}{dt}: descriptors not unit norm "
                                      f"({norm_err})")
-            if int(o["band_overflow"]):
-                raise AssertionError(f"{tag}{dt}: band overflow")
+            if set(o) != {"global", "octree_overflow"}:
+                raise AssertionError(f"{tag}{dt}: outputs {sorted(o)}")
         gk, gp = out_fp32["global"], out_plain["global"]
         cos = float((gk * gp).sum(1).min())
         maxabs = float((gk - gp).abs().max())
@@ -846,6 +851,70 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
     del model, plain_model, embed_bf16, embed_fp32, embed_plain
     torch.cuda.empty_cache()
     return out["launches_per_forward"], out
+
+
+def spans_phase(torch, cfg, pts, pmask):
+    """The slice's bf16 embed (seeded random weights) under torch.profiler
+    once with the program's spans on and once with them off (``annotate``
+    shown a profiler flag that reads off). With them on, no device event
+    may be a user annotation (the range kineto draws on a stream for a
+    ``record_function``, which a trace reader would count as device
+    work); both must launch the same number of kernels; the ``hfl.*``
+    spans must take >= 99% of the kernel time. Returns the numbers."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hotformerloc_torch.evaluation.embed import make_embed_fn
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    from hotformerloc_torch.utils import profiling
+
+    model = HOTFormerLoc(cfg, device="cuda",
+                         generator=torch.Generator().manual_seed(0))
+    embed = make_embed_fn(model, torch.bfloat16)
+
+    def records(spans_on):
+        real = profiling._autograd_profiler
+        if not spans_on:
+            profiling._autograd_profiler = types.SimpleNamespace(
+                _is_profiler_enabled=False)
+        try:
+            for _ in range(3):     # a window may come back without events
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    embed(pts, pmask)
+                    torch.cuda.synchronize()
+                rec = profiling.trace_records(prof)
+                if rec[0]:
+                    return rec
+        finally:
+            profiling._autograd_profiler = real
+        raise AssertionError("torch.profiler recorded no device event")
+
+    embed(pts, pmask)
+    on, off = records(True), records(False)
+    del model, embed
+    torch.cuda.empty_cache()
+    annotations = sorted({d[3] for d in on[0]
+                          if d[4] == "gpu_user_annotation"})
+    if annotations:
+        raise AssertionError(f"spans drew device ranges: {annotations}")
+    if off[2]:
+        raise AssertionError(f"{len(off[2])} spans with the spans off")
+    kernels = [sum(d[4] == "kernel" for d in r[0]) for r in (on, off)]
+    if kernels[0] != kernels[1]:
+        raise AssertionError(f"kernels with spans {kernels[0]}, "
+                             f"without {kernels[1]}")
+    by_span = profiling.attribute(
+        [d for d in on[0] if d[4] == "kernel"], on[1], on[2])
+    share = 1.0 - by_span["span_s"].get("unattributed", 0.0) / \
+        by_span["device_s"]
+    if share < 0.99:
+        raise AssertionError(f"spans hold {100 * share:.2f}% of the kernel "
+                             f"time: {by_span['span_s']}")
+    return {"batch": len(pts), "traced_kernels": kernels[0],
+            "span_kernel_share": share,
+            "kernel_s_by_span": by_span["span_s"]}
 
 
 class CountConv3d:
@@ -1071,7 +1140,7 @@ def scatter_phase(torch, dev, cfg, pts, pmask):
     from hotformerloc_torch.training.optim import (lr_schedule,
                                                    make_optimizer)
     from hotformerloc_torch.training.step import StepConfig, make_train_step
-    from hotformerloc_torch.utils.profiling import device_us
+    from hotformerloc_torch.utils.profiling import device_us, device_work
 
     m = HOTFormerLoc(cfg, device=dev, dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(0))
@@ -1090,8 +1159,7 @@ def scatter_phase(torch, dev, cfg, pts, pmask):
                                  ProfilerActivity.CUDA]) as prof:
             step(batch, 2 + attempt)
             torch.cuda.synchronize()
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_events = [e for e in prof.key_averages() if device_work(e)]
         if sum(device_us(e) for e in dev_events) > 0:
             break
     else:
@@ -4330,6 +4398,14 @@ def main():
           **scatter_phase(torch, dev,
                           dataclasses.replace(cfg, grad_checkpoint=False),
                           pts, pmask),
+          "seconds": round(time.time() - t_phase, 1)})
+
+    # ---- 8d. the program's spans in a traced embed ------------------------
+    # After the probes, as phase 8: a profiled window before the train
+    # phase can leave the probe tools' later windows without device events.
+    t_phase = time.time()
+    emit({"phase": "spans", "config": "oxford_config",
+          **spans_phase(torch, cfg, pts, pmask),
           "seconds": round(time.time() - t_phase, 1)})
 
     # ---- 8c. the step-bisection and profile tools ------------------------

@@ -11,6 +11,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+from hotformerloc_torch.utils import profiling
 
 
 def compute_dtype(device) -> torch.dtype:
@@ -24,11 +25,12 @@ def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
                   ) -> Callable[[torch.Tensor, torch.Tensor],
                                 Dict[str, torch.Tensor]]:
     """Return ``embed(points, pmask, normals=None) -> {'global',
-    'octree_overflow', 'band_overflow'}`` (``normals`` (B, P, 3) for the
-    'N' input feature) running ``model`` in ``dtype`` (a converted copy
-    when the model's parameters have another dtype) under
+    'octree_overflow'}`` (``normals`` (B, P, 3) for the 'N' input
+    feature) running ``model`` in ``dtype`` (a converted copy when the
+    model's parameters have another dtype) under
     ``torch.inference_mode``. Inputs are moved to the model's device.
-    cuDNN TF32 is switched off during the call so fp32 runs stay fp32."""
+    cuDNN TF32 is switched off during the call so fp32 runs stay fp32.
+    Each call is one ``hfl.embed`` span, the root of the model's spans."""
     params = next(model.parameters())
     m = model if params.dtype == dtype else copy.deepcopy(model).to(dtype)
     m.eval()
@@ -39,7 +41,7 @@ def make_embed_fn(model: HOTFormerLoc, dtype: torch.dtype = torch.bfloat16
         prev = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            with torch.inference_mode():
+            with profiling.annotate("hfl.embed"), torch.inference_mode():
                 return m(points.to(device), pmask.to(device), dtype=dtype,
                          normals=None if normals is None
                          else normals.to(device))

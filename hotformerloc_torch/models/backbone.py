@@ -31,15 +31,16 @@ the xCPE.
 from __future__ import annotations
 
 from functools import partial
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from hotformerloc_torch.models.blocks import (HOTFormerBlock, OctFormerBlock,
-                                              RelayTokenBlock)
+from hotformerloc_torch.models.blocks import (SPAN_HOSA, SPAN_RTSA,
+                                              HOTFormerBlock, OctFormerBlock,
+                                              RelayTokenBlock, count_block)
 from hotformerloc_torch.models.config import ADAPE_STATS, ModelConfig
 from hotformerloc_torch.models.attention import TokenAttention
 from hotformerloc_torch.models.layers import (CPE, ADaPE, Downsample,
@@ -49,6 +50,7 @@ from hotformerloc_torch.models.layers import (CPE, ADaPE, Downsample,
                                               layer_norm, linear, param)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import OctreePlan
+from hotformerloc_torch.utils import profiling
 
 
 # The kernel ops whose outputs each remat policy keeps.
@@ -68,7 +70,8 @@ def _keep_ops(names):
     return policy
 
 
-def run_block(cfg: ModelConfig, block: nn.Module, *args):
+def run_block(cfg: ModelConfig, block: nn.Module, *args,
+              span: Optional[str] = None):
     """``block(*args)``, under activation checkpointing when
     ``cfg.grad_checkpoint`` is set and autograd records, keeping the
     outputs ``cfg.remat_policy`` names (``REMAT_SAVED_OPS``). The DropPath
@@ -76,9 +79,16 @@ def run_block(cfg: ModelConfig, block: nn.Module, *args):
     recompute (the model clears them once its forward returns, before the
     backward runs), so the recompute equals the forward. Its running
     statistics are staged again, to the same values (layers.py
-    ``RunningStats``)."""
+    ``RunningStats``). With ``span`` the call is that profiling span, and
+    so is the recompute (for a block that opens no span of its own)."""
+    def call(*args_):
+        if span is None:
+            return block(*args_)
+        with profiling.annotate(span):
+            return block(*args_)
+
     if not (cfg.grad_checkpoint and torch.is_grad_enabled()):
-        return block(*args)
+        return call(*args)
     sites = [(m, "mask" if isinstance(m, DropPath) else "seed")
              for m in block.modules() if isinstance(m, (DropPath, Dropout))]
     drawn = [getattr(m, a) for m, a in sites]
@@ -88,7 +98,7 @@ def run_block(cfg: ModelConfig, block: nn.Module, *args):
         for (m, a), v in zip(sites, drawn):
             setattr(m, a, v)
         try:
-            return block(*args_)
+            return call(*args_)
         finally:
             for (m, a), v in zip(sites, prev):
                 setattr(m, a, v)
@@ -127,6 +137,10 @@ class PatchEmbed(nn.Module):
         self.proj = OctreeConvNormRelu(prev, dim, conv_norm, device=device)
 
     def forward(self, x, plan: OctreePlan):
+        with profiling.annotate("hfl.stem"):
+            return self._forward(x, plan)
+
+    def _forward(self, x, plan: OctreePlan):
         oc = plan.octree
         d = oc.depth
         if not self.downsample:
@@ -194,9 +208,13 @@ class OctFormerStage(nn.Module):
         rt = ow.masked_window_mean(x, ctx.node_valid, chunk)
         wvalid = ow.window_valid(ctx.node_valid, chunk)
         for i in range(self.num_blocks):
-            h = getattr(self, f"rt_ln{i}")(rt)
-            rt = rt + getattr(self, f"rt_attn{i}")(h, wvalid)
-            x, rt = run_block(c, getattr(self, f"block{i}"), x, rt, ctx)
+            with profiling.annotate(SPAN_RTSA):
+                count_block(wvalid, wvalid)
+                h = getattr(self, f"rt_ln{i}")(rt)
+                rt = rt + getattr(self, f"rt_attn{i}")(h, wvalid)
+            count_block(ctx.counts, ctx.node_valid)
+            x, rt = run_block(c, getattr(self, f"block{i}"), x, rt, ctx,
+                              span=SPAN_HOSA)
         return x
 
 
@@ -229,18 +247,23 @@ class HOTFormerIteration(nn.Module):
                     channels[j], max_ch, device=device))
 
     def forward(self, rt_comb, locals_, ctxs, rt_mask):
-        rt_comb = self.rtsa(rt_comb, rt_mask)
+        with profiling.annotate(SPAN_RTSA):
+            count_block(rt_mask, rt_mask)
+            rt_comb = self.rtsa(rt_comb, rt_mask)
         parts, new_locals = [], []
         off = 0
         for j in range(self.levels):
             width = ctxs[j].node_valid.shape[1] // self.chunk
             rt_j = rt_comb[:, off:off + width]
             off += width
-            if self.use_proj:
-                rt_j = getattr(self, f"down_proj{j}")(rt_j)
-            x_j, rt_j = getattr(self, f"hosa{j}")(locals_[j], rt_j, ctxs[j])
-            if self.use_proj:
-                rt_j = getattr(self, f"up_proj{j}")(rt_j)
+            with profiling.annotate(SPAN_HOSA):
+                count_block(ctxs[j].counts, ctxs[j].node_valid)
+                if self.use_proj:
+                    rt_j = getattr(self, f"down_proj{j}")(rt_j)
+                x_j, rt_j = getattr(self, f"hosa{j}")(locals_[j], rt_j,
+                                                      ctxs[j])
+                if self.use_proj:
+                    rt_j = getattr(self, f"up_proj{j}")(rt_j)
             parts.append(rt_j)
             new_locals.append(x_j)
         return torch.cat(parts, dim=1), new_locals
@@ -328,20 +351,35 @@ class HOTFormerStage(nn.Module):
         """Returns ({depth: local features}, rt_comb, rt_mask); the last two
         are None with ``disable_rt``."""
         c = self.cfg
-        chunk = c.patch_size // c.rt_size
         oc = plan.octree
         ctxs = [plan.level_ctx(d) for d in self.depths]
         locals_ = [x]
         for j in range(len(self.depths) - 1):
-            locals_.append(getattr(self, f"downsample{j}")(
-                locals_[j], plan.down_tables(self.depths[j]),
-                oc.node_valid(self.depths[j + 1])))
+            with profiling.annotate("hfl.down"):
+                locals_.append(getattr(self, f"downsample{j}")(
+                    locals_[j], plan.down_tables(self.depths[j]),
+                    oc.node_valid(self.depths[j + 1])))
         if c.disable_rt:
             for i in range(self.num_blocks):
                 for j, ctx in enumerate(ctxs):
                     locals_[j] = run_block(c, getattr(self, f"hosa_l{j}_b{i}"),
                                            locals_[j], ctx)
             return dict(zip(self.depths, locals_)), None, None
+        with profiling.annotate("hfl.rt_init"):
+            rt_comb, rt_mask, widths = self._init_relay_tokens(
+                x, locals_, ctxs)
+        for it in self.iters:
+            rt_comb, locals_ = run_block(c, it, rt_comb, locals_, ctxs,
+                                         rt_mask)
+        if c.rt_propagation:
+            with profiling.annotate("hfl.rt_propagate"):
+                self._propagate(rt_comb, widths, locals_, ctxs)
+        return dict(zip(self.depths, locals_)), rt_comb, rt_mask
+
+    def _init_relay_tokens(self, x, locals_, ctxs):
+        """(rt_comb, rt_mask, each level's width in relay tokens)."""
+        c = self.cfg
+        chunk = c.patch_size // c.rt_size
         rts = []
         for j, d in enumerate(self.depths):
             src = locals_[j]
@@ -360,24 +398,24 @@ class HOTFormerStage(nn.Module):
             if c.use_projections:
                 rt = getattr(self, f"init_up_proj{j}")(rt)
             rts.append(rt)
-        widths = [r.shape[1] for r in rts]
         rt_comb = torch.cat(rts, dim=1)
         rt_mask = torch.cat([ow.window_valid(ctx.node_valid, chunk)
                              for ctx in ctxs], dim=1)
-        for it in self.iters:
-            rt_comb, locals_ = run_block(c, it, rt_comb, locals_, ctxs,
-                                         rt_mask)
-        if c.rt_propagation:
-            for j, rt_j in enumerate(torch.split(rt_comb, widths, dim=1)):
-                if c.use_projections:
-                    rt_j = getattr(self, f"prop_down_proj{j}")(rt_j)
-                up = rt_j.repeat_interleave(chunk, dim=1)
-                up = torch.where(ctxs[j].node_valid[..., None], up, 0.0)
-                if c.rt_propagation_scale is not None:
-                    up = up * cast(getattr(self, f"rt_gamma_propagate{j}"),
-                                   up)
-                locals_[j] = locals_[j] + up
-        return dict(zip(self.depths, locals_)), rt_comb, rt_mask
+        return rt_comb, rt_mask, [r.shape[1] for r in rts]
+
+    def _propagate(self, rt_comb, widths, locals_, ctxs) -> None:
+        """Add each level's relay tokens back to its nodes, in place in
+        ``locals_``."""
+        c = self.cfg
+        chunk = c.patch_size // c.rt_size
+        for j, rt_j in enumerate(torch.split(rt_comb, widths, dim=1)):
+            if c.use_projections:
+                rt_j = getattr(self, f"prop_down_proj{j}")(rt_j)
+            up = rt_j.repeat_interleave(chunk, dim=1)
+            up = torch.where(ctxs[j].node_valid[..., None], up, 0.0)
+            if c.rt_propagation_scale is not None:
+                up = up * cast(getattr(self, f"rt_gamma_propagate{j}"), up)
+            locals_[j] = locals_[j] + up
 
 
 class HOTFormerBase(nn.Module):
@@ -415,7 +453,8 @@ class HOTFormerBase(nn.Module):
         d = c.transformer_depth
         for i in range(c.num_octf_levels):
             feat = getattr(self, f"octf_stage{i}")(feat, plan.level_ctx(d))
-            feat = getattr(self, f"octf_down{i}")(
-                feat, plan.down_tables(d), plan.octree.node_valid(d - 1))
+            with profiling.annotate("hfl.down"):
+                feat = getattr(self, f"octf_down{i}")(
+                    feat, plan.down_tables(d), plan.octree.node_valid(d - 1))
             d -= 1
         return self.hotf_stage(feat, plan)

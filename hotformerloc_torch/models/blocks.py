@@ -5,6 +5,11 @@ Counterparts of hotformerloc_tpu/models/blocks.py. Each residual
 branch ends in a DropPath at the block's rate (blocks.py:64-195).
 ``conv_norm`` and ``xcpe`` select the CPE's norm and conv; ``attn_drop``
 and ``proj_drop`` the dropout of the attention and the MLP.
+
+An OctFormer block is one ``hfl.block.osa`` span and counts the valid
+nodes it sees (``hfl.block.valid``) against the slots it processes
+(``hfl.block.slots``; ``count_block``); the callers of H-OSA and RTSA
+blocks open their spans (backbone.py), around the projections too.
 """
 from __future__ import annotations
 
@@ -18,6 +23,19 @@ from hotformerloc_torch.models.layers import (CPE, DropPath, LayerScale, Mlp,
                                               layer_norm)
 from hotformerloc_torch.ops import window as ow
 from hotformerloc_torch.ops.plan import LevelCtx
+from hotformerloc_torch.utils import profiling
+
+SPAN_OSA, SPAN_HOSA, SPAN_RTSA = ("hfl.block.osa", "hfl.block.hosa",
+                                  "hfl.block.rtsa")
+
+
+def count_block(valid: torch.Tensor, slots: torch.Tensor) -> None:
+    """Count a block's valid tokens (``valid``: per-sample counts or a
+    validity mask, summed when the counting scope is read) against its
+    slots (``slots``: the mask of every slot it processes; only its
+    size is counted)."""
+    profiling.count("hfl.block.valid", valid)
+    profiling.count("hfl.block.slots", slots.numel())
 
 
 class _Block(nn.Module):
@@ -67,13 +85,16 @@ class OctFormerBlock(_Block):
         self.use_rpe = use_rpe
 
     def forward(self, x, ctx: LevelCtx):
-        K, D = self.patch_size, self.dilation
-        x = x + self.cpe(x, ctx)
-        xw = ow.data_to_windows(x, K, D)
-        key_mask = ow.window_key_mask(ctx.node_valid, K, D)
-        xyz_w = ow.data_to_windows(ctx.xyz, K, D) if self.use_rpe else None
-        return ow.windows_to_data(self.residuals(xw, key_mask, xyz_w,
-                                                 2 ** ctx.depth), K, D)
+        with profiling.annotate(SPAN_OSA):
+            count_block(ctx.counts, ctx.node_valid)
+            K, D = self.patch_size, self.dilation
+            x = x + self.cpe(x, ctx)
+            xw = ow.data_to_windows(x, K, D)
+            key_mask = ow.window_key_mask(ctx.node_valid, K, D)
+            xyz_w = (ow.data_to_windows(ctx.xyz, K, D) if self.use_rpe
+                     else None)
+            return ow.windows_to_data(self.residuals(xw, key_mask, xyz_w,
+                                                     2 ** ctx.depth), K, D)
 
 
 class HOTFormerBlock(_Block):

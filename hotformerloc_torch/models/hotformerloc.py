@@ -23,6 +23,7 @@ from hotformerloc_torch.models.pooling import (AttnPool, GeM,
 from hotformerloc_torch.octree import morton
 from hotformerloc_torch.octree.build import BatchedOctree, build_batched_octree
 from hotformerloc_torch.ops.plan import OctreePlan, build_plan
+from hotformerloc_torch.utils import profiling
 
 FEATURE_CHANNELS = {"N": 3, "D": 1, "L": 3, "P": 3}
 
@@ -72,9 +73,11 @@ def build_model_plan(cfg: ModelConfig, points: torch.Tensor,
     if "N" in cfg.input_features and normals is None:
         raise ValueError("input feature 'N' requires a (B, P, 3) normals "
                          "argument")
-    octree = build_batched_octree(points, pmask, cfg.octree_depth,
-                                  cfg.min_depth, cfg.resolve_capacities(),
-                                  normals=normals)
+    with profiling.annotate("hfl.octree"):
+        octree = build_batched_octree(points, pmask, cfg.octree_depth,
+                                      cfg.min_depth,
+                                      cfg.resolve_capacities(),
+                                      normals=normals)
     return build_plan(octree, tap_lists=tap_lists)
 
 
@@ -99,8 +102,7 @@ def _make_head(cfg: ModelConfig, device) -> nn.Module:
 
 class HOTFormerLoc(nn.Module):
     """points (B, P, 3) in [-1, 1] + pmask (B, P) -> {'global': (B, D)
-    fp32 descriptors, 'octree_overflow': nodes dropped by capacity,
-    'band_overflow': 0}.
+    fp32 descriptors, 'octree_overflow': nodes dropped by capacity}.
 
     Built on ``device`` (the card unless the caller asks for the CPU)
     with the JAX package's initial distributions drawn from
@@ -218,13 +220,21 @@ class HOTFormerLoc(nn.Module):
             for s, seed in zip(drops, seeds.tolist()):
                 s.seed = seed
         try:
-            feat = input_features(octree, c.input_features).to(dtype)
+            with profiling.annotate("hfl.features"):
+                feat = input_features(octree, c.input_features).to(dtype)
             local_dict, rt_comb, rt_mask = self.backbone(feat, plan)
         finally:
             for s in sites:
                 s.mask = None
             for s in drops:
                 s.seed = None
+        with profiling.annotate("hfl.pooling"):
+            x = self._pool(local_dict, rt_comb, rt_mask, octree)
+        return {"global": x, "octree_overflow": octree.overflow.sum()}
+
+    def _pool(self, local_dict, rt_comb, rt_mask, octree) -> torch.Tensor:
+        """The descriptor head, in fp32, normalised when the config says."""
+        c = self.cfg
         pyr = c.pyramid_depths
         if c.pooling in ("AttnPoolMixer", "AttnPoolGeM"):
             x = self.pooling(rt_comb, rt_mask)
@@ -236,9 +246,7 @@ class HOTFormerLoc(nn.Module):
         x = x.float()
         if c.normalize_embeddings:
             x = x / torch.clamp(x.norm(dim=1, keepdim=True), min=1e-12)
-        return {"global": x,
-                "octree_overflow": octree.overflow.sum(),
-                "band_overflow": plan.band_overflow()}
+        return x
 
 
 def param_count(model: nn.Module) -> int:

@@ -2,11 +2,12 @@
 
 Counterpart of hotformerloc_tpu/ops/plan.py without its band tables:
 those only patch taps that escape a TPU VMEM band, and the CUDA kernels
-here gather every tap directly, so ``band_overflow`` is 0 by
-construction. In their place each level whose stride-1 convs run a
-kernel carries per-tap pair lists of its neighbour table
-(``TapLists``), which the backward weight-gradient kernels walk instead
-of the table; every conv at the level, forward and backward, shares them.
+here gather every tap directly, so no tap ever overflows a band (the JAX
+package's ``band_overflow`` has no counterpart). In their place each
+level whose stride-1 convs run a kernel carries per-tap pair lists of
+its neighbour table (``TapLists``), which the backward weight-gradient
+kernels walk instead of the table; every conv at the level, forward and
+backward, shares them.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from hotformerloc_torch.octree.build import BatchedOctree
 from hotformerloc_torch.octree.morton import SENTINEL
 from hotformerloc_torch.octree.neigh import all_neigh_tables, child_table
 from hotformerloc_torch.ops.conv import dense_voxel_index
+from hotformerloc_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,11 +89,6 @@ class OctreePlan:
                         dense_idx=didx,
                         taps=self.taps[lev] if self.taps else None)
 
-    def band_overflow(self) -> torch.Tensor:
-        """Always 0: every tap is gathered directly."""
-        return torch.zeros((), dtype=torch.int32,
-                           device=self.octree.leaf_mean.device)
-
     def children(self, d: int) -> torch.Tensor:
         c = self.childrens[self.octree.level(d)]
         assert c is not None
@@ -111,7 +108,13 @@ def build_plan(octree: BatchedOctree, dense_depths: Tuple[int, ...] = (),
     parent recurrence, then the voxel maps of the dense-grid CPE depths
     and, with ``tap_lists``, the tap lists of every other level (their
     stride-1 convs run the octree-conv kernels, whose backward reads
-    them; a forward without gradients needs none)."""
+    them; a forward without gradients needs none). One ``hfl.plan``
+    span."""
+    with profiling.annotate("hfl.plan"):
+        return _build_plan(octree, dense_depths, tap_lists)
+
+
+def _build_plan(octree, dense_depths, tap_lists) -> OctreePlan:
     childrens = tuple(
         child_table(octree, d) if d > octree.min_depth else None
         for d in range(octree.min_depth, octree.depth + 1))

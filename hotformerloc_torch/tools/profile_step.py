@@ -16,9 +16,16 @@ device busy time (sum of kernel durations; one stream, so kernels do
 not overlap) and idle share, and the device time per call by kernel
 class (the six hand-written kernels by name, then cuDNN convolutions,
 cuBLAS GEMMs, elementwise, reductions, gathers/scatters, copies, norms,
-the rest), with the 25 longest kernels. ``--out`` also writes the
-key_averages table there (profile_<mode>.txt). Exits 1 without a CUDA
-device.
+the rest), with the 25 longest kernels; then the device time, kernel
+launches and idle time per call by the program's innermost ``hfl.*``
+span (``utils/profiling.py`` ``span_summary``; ``unattributed``: device
+work launched outside every span), the ten longest idle gaps named
+``span > host op``, and the blocks' valid nodes as a share of the slots
+they process (``valid_node_share``, from ``profiling.counting``).
+Device events are kernels, copies and fills: the ranges kineto draws on
+a stream for a ``record_function`` are left out. ``--out`` also writes
+the key_averages table there (profile_<mode>.txt). Exits 1 without a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from hotformerloc_torch.utils.profiling import device_us
+from hotformerloc_torch.utils import profiling
 
 # (class, substrings of the CUDA kernel name), first match wins. The
 # forward bodies also run the dx of K4/K6 (dwconv_fwd_kernel,
@@ -125,17 +132,23 @@ def main(argv=None) -> int:
         call(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            profiling.counting() as counts:
         t0 = time.perf_counter()
         for i in range(args.steps):
             call(3 + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if profiling.device_work(e)]
+    spans = profiling.span_summary(prof)
+    totals = counts.totals()
+
+    def per_call(d, scale=1e3):
+        return {k: v * scale / args.steps
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])}
     by_class, top = {}, []
     for e in kernels:
-        us = device_us(e) / args.steps
+        us = profiling.device_us(e) / args.steps
         by_class[classify(e.key)] = by_class.get(classify(e.key), 0.0) + us
         top.append((us, e.count // args.steps, e.key[:120]))
     busy_ms = sum(by_class.values()) / 1e3
@@ -153,6 +166,13 @@ def main(argv=None) -> int:
             by_class.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"ms": us / 1e3, "calls": n, "name": name}
                         for us, n, name in top[:25]],
+        "span_ms": per_call(spans["span_s"]),
+        "span_kernels": per_call(spans["span_kernels"], 1),
+        "idle_span_ms": per_call(spans["idle_span_s"]),
+        "idle_gaps_ms": [[n, s * 1e3] for n, s in spans["idle_gaps"]],
+        "valid_node_share": (100.0 * totals["hfl.block.valid"]
+                             / totals["hfl.block.slots"]
+                             if totals.get("hfl.block.slots") else None),
     }
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -149,9 +149,9 @@ class TrainStep:
     """``step(batch, seed) -> stats``. batch: {'points': (B, P, 3),
     'pmask': (B, P), 'positives_mask': (B, B), 'negatives_mask': (B, B)}
     on the model's device. Stats are 0-d tensors with the JAX step's
-    keys: the loss's, 'octree_overflow', 'band_overflow' (0 here) and
-    'grad_norm'. After a step every parameter's ``.grad`` holds that
-    step's gradient.
+    keys: the loss's, 'octree_overflow' and 'grad_norm' (the JAX step's
+    'band_overflow' has no counterpart: every tap is gathered directly).
+    After a step every parameter's ``.grad`` holds that step's gradient.
 
     ``group``: the process group of data parallelism (None: one
     process). Each rank then passes its rows of the global batch in the
@@ -231,8 +231,7 @@ class TrainStep:
                 emb, dist.all_gather_rows(t_emb, g))
         loss.backward()
         m.commit_stats()
-        stats = dict(stats, octree_overflow=out["octree_overflow"],
-                     band_overflow=out["band_overflow"])
+        stats = dict(stats, octree_overflow=out["octree_overflow"])
         return stats
 
     def _multistage(self, batch: Batch, seed: int):
@@ -273,8 +272,7 @@ class TrainStep:
             (g_emb,) = torch.autograd.grad(loss, emb)
         n = dist.world(g)                     # this rank's rows
         g_emb = g_emb.view(A, n, mb, -1)[:, r].reshape(b, -1)
-        stats = dict(stats, octree_overflow=torch.stack(ovf).sum(),
-                     band_overflow=plans[0].band_overflow())
+        stats = dict(stats, octree_overflow=torch.stack(ovf).sum())
 
         # Stage 3: recompute per microbatch, chain rule into the params.
         diff = []

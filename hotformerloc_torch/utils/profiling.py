@@ -6,20 +6,28 @@ synchronise the devices of the tensors they are given; ``time_fn`` times
 CUDA work with CUDA events and CPU work with the host clock, and says
 which clock it used; ``device_ms`` sums a call's kernel time under
 ``torch.profiler``, and ``bound_ms`` gives the least time an H100 could
-take for a given work; ``trace`` and ``annotate`` wrap
-``torch.profiler``; ``print_info`` counts parameters by module path;
+take for a given work; ``trace`` wraps ``torch.profiler``; ``annotate``
+opens a named span of the program (one flag check when no profiler
+runs) and ``span_summary`` attributes a trace's device time to the
+innermost span that launched it; ``count`` adds to a counter of an open
+``counting()`` scope; ``print_info`` counts parameters by module path;
 ``step_cost`` counts FLOPs with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import os
 import statistics
 import subprocess
 import time
-from typing import Callable, Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+# Private symbols, present in PyTorch 2.11 (the H100 machine's) and 2.13:
+# the op-scope RecordFunction and the profiler's enabled flag (annotate).
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _tensors(tree) -> Iterator[torch.Tensor]:
@@ -105,6 +113,16 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
     return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
 
+def device_work(evt) -> bool:
+    """Whether a ``key_averages()`` entry is work on the card (a kernel, a
+    copy or a fill), and not the range kineto draws on a stream for a
+    ``record_function`` (``gpu_user_annotation``): that range spans its
+    kernels and the gaps between them, so counting it would count them
+    twice."""
+    return (evt.device_type == torch.autograd.DeviceType.CUDA
+            and not evt.is_user_annotation)
+
+
 def device_us(evt) -> float:
     """Self device time in µs of one ``key_averages()`` entry, under the
     attribute name of either profiler generation."""
@@ -145,7 +163,7 @@ def device_ms(fn: Callable, *args, iters: int = 10, **kw) -> float:
                 out = fn(*args, **kw)
             block(out)
         us = sum(device_us(e) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+                 if device_work(e))
         if us > 0:
             break
     if us <= 0:
@@ -213,11 +231,205 @@ def trace(logdir: str):
     print(f"[trace] written to {logdir}")
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+# Every span of the program is named ``hfl.<part>``.
+SPAN_PREFIX = "hfl."
+
+
 def annotate(name: str):
-    """Named region inside an active trace (shows up on the timeline)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named span of the program: ``with annotate("hfl.plan"): ...``.
+
+    While torch.profiler runs, the span is a host range in its trace (a
+    RecordFunction, on the clock of the device events), and every kernel
+    launched inside it can be attributed to it (``span_summary``). The
+    range is an op range, not a user annotation, so kineto draws no
+    range for it on the device's streams: a trace's device events stay
+    the kernels, copies and fills alone. It goes through no dispatcher
+    op, so a selective-checkpoint policy never sees it. With no profiler
+    running it costs one flag check and returns a shared no-op. Pass a
+    name built once (a constant), not one formatted per call."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
+
+
+class Counts:
+    """What one ``counting()`` scope collected: (name, value) in order.
+    Values may be device tensors; they are summed only by ``totals``."""
+
+    def __init__(self):
+        self.entries: List[Tuple[str, object]] = []
+
+    def totals(self) -> Dict[str, int]:
+        """Each counter's sum over the scope (tensors summed over their
+        elements; this synchronises with the device)."""
+        out: Dict[str, int] = {}
+        for name, v in self.entries:
+            n = int(v.sum()) if isinstance(v, torch.Tensor) else int(v)
+            out[name] = out.get(name, 0) + n
+        return out
+
+
+_COUNTS: Optional[Counts] = None
+
+
+@contextlib.contextmanager
+def counting():
+    """Collect the program's ``count`` calls made inside the block:
+
+        with counting() as c:
+            embed(points, pmask)
+        c.totals()      # {"hfl.block.valid": ..., "hfl.block.slots": ...}
+
+    Nested scopes do not add up: the innermost one collects."""
+    global _COUNTS
+    prev, _COUNTS = _COUNTS, Counts()
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a host number, or a tensor whose elements are
+    summed when the scope is read) to counter ``name`` of the open
+    ``counting()`` scope. Without a scope it returns at once; inside one
+    it keeps a reference and launches nothing."""
+    if _COUNTS is not None:
+        _COUNTS.entries.append((name, value))
+
+
+# -- attributing a trace's device time to the program's spans -----------
+
+def _timeline(spans: List[Tuple[int, int, str]]):
+    """Sorted boundaries of nested ranges [(start, end, name)] and the
+    innermost name in force from each boundary on (None: no range). A
+    range that ends after its enclosing one is cut at that end."""
+    bounds: List[int] = []
+    names: List[Optional[str]] = []
+    stack: List[Tuple[int, str]] = []          # (end, name)
+
+    def close(upto):
+        while stack and stack[-1][0] <= upto:
+            end, _ = stack.pop()
+            bounds.append(end)
+            names.append(stack[-1][1] if stack else None)
+
+    for s, e, name in sorted(spans, key=lambda r: (r[0], -r[1])):
+        close(s)
+        if stack:
+            e = min(e, stack[-1][0])
+        stack.append((e, name))
+        bounds.append(s)
+        names.append(name)
+    close(float("inf"))
+    return bounds, names
+
+
+def _at(line, t) -> Optional[str]:
+    bounds, names = line
+    i = bisect.bisect_right(bounds, t) - 1
+    return names[i] if i >= 0 else None
+
+
+def attribute(device, launches, spans, ops=()) -> Dict:
+    """Device time of a trace by the innermost program span that launched
+    it, from plain records:
+
+    - ``device``: [(start_ns, end_ns, correlation, name, activity)], the
+      device's events; ``activity`` is kineto's type ("kernel",
+      "gpu_memcpy", "gpu_memset", "gpu_user_annotation", ...), and
+      annotation ranges are left out;
+    - ``launches``: {correlation: (thread, t_ns)}, the host call that
+      launched each device event;
+    - ``spans``: [(thread, start_ns, end_ns, name)], the program's spans;
+    - ``ops``: [(start_ns, end_ns, name)], host ops, to name idle gaps.
+
+    Returns ``span_s`` and ``span_kernels`` (device seconds and kernel
+    launches by innermost span; an event without one is
+    ``unattributed``), ``device_s`` (their sum), ``busy_s`` (the union of
+    the events), ``idle_span_s`` (idle seconds by the innermost span open
+    at each gap's middle, on any thread) and ``idle_gaps``: the ten
+    longest gaps as [span > op, seconds]."""
+    work = sorted(d for d in device if d[4] != "gpu_user_annotation")
+    by_thread: Dict[int, list] = {}
+    for th, s, e, name in spans:
+        by_thread.setdefault(th, []).append((s, e, name))
+    lines = {th: _timeline(v) for th, v in by_thread.items()}
+    every = _timeline([(s, e, n) for _, s, e, n in spans])
+    span_s: Dict[str, float] = {}
+    span_kernels: Dict[str, int] = {}
+    device_s = 0.0
+    for s, e, corr, _, activity in work:
+        th, t = launches.get(corr, (None, None))
+        name = (_at(lines[th], t) if th in lines else None) or "unattributed"
+        span_s[name] = span_s.get(name, 0.0) + (e - s) * 1e-9
+        device_s += (e - s) * 1e-9
+        if activity == "kernel":
+            span_kernels[name] = span_kernels.get(name, 0) + 1
+    busy, gaps, cur = 0, [], None
+    for s, e, *_ in work:
+        if cur is None:
+            cur = [s, e]
+        elif s > cur[1]:
+            busy += cur[1] - cur[0]
+            gaps.append((cur[1], s))
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    op_line = _timeline(list(ops))
+    idle: Dict[str, float] = {}
+    named = []
+    for a, b in gaps:
+        mid = (a + b) // 2
+        span = _at(every, mid) or "none"
+        idle[span] = idle.get(span, 0.0) + (b - a) * 1e-9
+        named.append([f"{span} > {_at(op_line, mid) or 'none'}",
+                      (b - a) * 1e-9])
+    named.sort(key=lambda g: -g[1])
+    return {"span_s": span_s, "span_kernels": span_kernels,
+            "device_s": device_s, "busy_s": busy * 1e-9,
+            "idle_span_s": idle, "idle_gaps": named[:10]}
+
+
+def _device_kind(evt) -> str:
+    """kineto's type of a device event, from its flag and name (not every
+    PyTorch release gives the type itself)."""
+    if evt.is_user_annotation():
+        return "gpu_user_annotation"
+    low = evt.name().lower()
+    return ("gpu_memcpy" if low.startswith("memcpy") else
+            "gpu_memset" if low.startswith("memset") else "kernel")
+
+
+def trace_records(prof):
+    """The records ``attribute`` reads, from a finished torch.profiler
+    profile: each device event's launch is the CUDA runtime or driver
+    call (a host event named ``cu*``) with its correlation id; spans
+    are the host ranges whose name starts with ``SPAN_PREFIX``."""
+    device, launches, spans, ops = [], {}, [], []
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        s = e.start_ns()
+        rec = (s, s + e.duration_ns(), e.name())
+        if e.device_type() == cuda:
+            device.append(rec[:2] + (e.correlation_id(), e.name(),
+                                     _device_kind(e)))
+        elif e.name().startswith("cu"):
+            launches.setdefault(e.correlation_id(), (e.start_thread_id(), s))
+        elif e.name().startswith(SPAN_PREFIX):
+            spans.append((e.start_thread_id(),) + rec)
+        elif not e.is_user_annotation():
+            ops.append(rec)
+    return device, launches, spans, ops
+
+
+def span_summary(prof) -> Dict:
+    """``attribute`` over a finished torch.profiler profile (CUDA
+    activity) of the program: where its device time went by span."""
+    return attribute(*trace_records(prof))
 
 
 def step_cost(fn: Callable, *example_args) -> Dict[str, float]:

@@ -80,7 +80,8 @@ def test_descriptors_match_jax(pair, use_kernels):
     assert cos.min() >= 0.9999, (name, cos, maxdiff)
     assert maxdiff <= 1e-4, (name, cos, maxdiff)
     assert int(out["octree_overflow"]) == int(jout["octree_overflow"])
-    assert int(out["band_overflow"]) == 0
+    # no band tables, so no band-overflow counter to build
+    assert set(out) == {"global", "octree_overflow"}
 
 
 def test_embed_fn_dtypes(pair):
