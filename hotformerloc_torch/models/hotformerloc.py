@@ -129,8 +129,8 @@ class HOTFormerLoc(nn.Module):
         self.eval()
 
     def set_use_kernels(self, flag: bool) -> None:
-        """Route convs and window attention through the CUDA kernels
-        (True, the default) or the plain tensor code (False)."""
+        """Route convs, window attention and LayerNorms through the CUDA
+        kernels (True, the default) or the plain tensor code (False)."""
         for m in self.modules():
             if hasattr(m, "use_kernels"):
                 m.use_kernels = flag

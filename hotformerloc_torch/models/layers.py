@@ -15,8 +15,9 @@ model converted with ``.to(torch.bfloat16)`` (bf16 serving) casts
 nothing. Softmax logits stay fp32.
 
 Kernel routing: modules with a ``use_kernels`` attribute send stride-1
-convs through the CUDA kernels of ops/kernels (whose CPU path is the
-plain version); ``use_kernels = False`` runs the plain tensor code.
+convs and LayerNorms through the CUDA kernels of ops/kernels (whose CPU
+path is the plain version); ``use_kernels = False`` runs the plain
+tensor code.
 
 Running statistics (``RunningStats``: MaskedBatchNorm, PowerNorm and the
 heads' BatchNorm) follow the JAX package's ``batch_stats`` collection,
@@ -42,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hotformerloc_torch.ops import conv as plain
+from hotformerloc_torch.ops.kernels import norm as knorm
 from hotformerloc_torch.ops.kernels import octree_conv as kconv
 from hotformerloc_torch.parallel import dist
 
@@ -108,12 +110,18 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm computing in its input's dtype. ``valid`` is taken and
-    ignored, as by the other norms of ``make_norm`` that need it."""
+    """nn.LayerNorm over the last axis computing in its input's dtype,
+    through ``layer_norm_rows_kernel`` (ops/kernels/norm.py; the plain
+    version on CPU tensors) when kernels are on, else ``F.layer_norm``.
+    ``valid`` is taken and ignored, as by the other norms of
+    ``make_norm`` that need it."""
+    use_kernels = True
 
     def forward(self, x, valid=None):
-        return F.layer_norm(x, self.normalized_shape, cast(self.weight, x),
-                            cast(self.bias, x), self.eps)
+        w, b = cast(self.weight, x), cast(self.bias, x)
+        if self.use_kernels:
+            return knorm.layer_norm(x, w, b, self.eps)
+        return F.layer_norm(x, self.normalized_shape, w, b, self.eps)
 
 
 def linear(fin: int, fout: int, bias: bool = True, device=None) -> Linear:

@@ -6,7 +6,8 @@ ctypes (build.py). A wrapper launches its kernel on a CUDA tensor and
 takes the plain PyTorch version beside it only for a CPU tensor; a
 build or launch error raises. Every kernel call goes through a
 ``torch.autograd.Function`` whose backward is the matching backward
-kernel, so gradients flow through the kernels.
+kernel, so gradients flow through the kernels (but the LayerNorm's,
+whose backward is aten's own, fed the kernel's statistics).
 
 ``LAUNCHES`` counts wrapper calls that launched on the card, per kernel
 name, so a run can show that it went through the kernels. A backward
@@ -14,7 +15,10 @@ entry point counts once under its own name, whichever kernel bodies it
 runs (dx of the convs reuses the forward bodies). ``window_attn``,
 ``window_attn_bwd``, ``octree_conv`` and ``octree_conv_bwd`` count every
 launch of K1, K2, K5 and K6; the same names with ``_tc`` count those
-that ran the tensor-core bodies.
+that ran the tensor-core bodies. ``layer_norm`` counts every launch of
+``layer_norm_rows_kernel``, one per LayerNorm module called on the card
+(a forward, or its recompute under activation checkpointing); its
+backward is aten's and counts nothing.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ LAUNCHES = {"window_attn": 0, "octree_dwconv": 0, "octree_conv": 0,
             "octree_conv_bwd": 0,
             "window_attn_tc": 0, "window_attn_bwd_tc": 0,
             "octree_conv_tc": 0, "octree_conv_bwd_tc": 0,
+            # every LayerNorm forward (norm.py; its backward is aten's)
+            "layer_norm": 0,
             # the probe tools' kernels (gather.py, constructs.py)
             "take_rows": 0, "dwconv_resident": 0,
             **{f"construct_{n}": 0 for n in (

@@ -24,7 +24,8 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("window_attn", "octree_conv", "gather", "constructs")
+SOURCES = ("window_attn", "octree_conv", "gather", "constructs",
+           "layer_norm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

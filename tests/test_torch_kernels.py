@@ -25,12 +25,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hotformerloc_tpu.ops import conv as jconv
 from hotformerloc_tpu.ops.pallas import band_conv as jband
 from hotformerloc_tpu.ops.pallas.window_attn import fused_window_attention
+from hotformerloc_torch.models import layers as tlayers
 from hotformerloc_torch.ops import conv as tconv
 from hotformerloc_torch.ops.kernels import build
+from hotformerloc_torch.ops.kernels import norm as knorm
 from hotformerloc_torch.ops.kernels import octree_conv as kconv
 from hotformerloc_torch.ops.kernels import window_attn as kattn
 
@@ -434,3 +437,283 @@ def test_dense_depthwise_conv3d_backward_equals_autograd(dtype):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=tol,
                                    atol=tol * max(1.0, float(b.abs().max())))
+
+
+# -- LayerNorm: layer_norm_rows_kernel's wrapper ------------------------------
+
+LN_WIDTHS = (8, 16, 32, 64, 128, 256)
+LN_LEADS = {"BNC": (2, 7), "BWTC": (2, 3, 5), "BMC": (3, 11)}
+
+
+def _ln_inputs(lead, C, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(*lead, C, generator=gen) * 3 + 1).to(dtype)
+    w = (1 + 0.5 * torch.randn(C, generator=gen)).to(dtype)
+    b = (0.5 * torch.randn(C, generator=gen)).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("lead", sorted(LN_LEADS))
+@pytest.mark.parametrize("C", LN_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_plain_path_equals_aten(dtype, C, lead):
+    """On the CPU the wrapper, the op and the module give F.layer_norm's
+    values and dtype, and the op aten's mean and rstd (shaped x.shape[:-1]
+    + (1,)), for a contiguous input and a non-contiguous view of it."""
+    x, w, b = _ln_inputs(LN_LEADS[lead], C, dtype)
+    xt = x.transpose(0, -2).contiguous().transpose(0, -2)
+    assert torch.equal(xt, x) and not xt.is_contiguous()
+    want = F.layer_norm(x, (C,), w, b, 1e-5)
+    _, mean, rstd = torch.native_layer_norm(x, (C,), w, b, 1e-5)
+    m = tlayers.layer_norm(C)
+    with torch.no_grad():
+        m.weight.copy_(w.float())
+        m.bias.copy_(b.float())
+    for inp in (x, xt):
+        got = knorm.layer_norm(inp, w, b, 1e-5)
+        y, gm, gr = knorm.layer_norm_op(inp, w, b, 1e-5)
+        assert got.dtype == y.dtype == dtype and got.shape == x.shape
+        assert torch.equal(got, want) and torch.equal(y, want)
+        assert gm.shape == gr.shape == (*x.shape[:-1], 1)
+        assert torch.equal(gm, mean) and torch.equal(gr, rstd)
+        assert torch.equal(m(inp.to(dtype)), want)
+
+
+@pytest.mark.parametrize("C", [8, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_grads_equal_autograd(dtype, C):
+    """Gradients of x, weight and bias through LayerNormFn equal autograd
+    of F.layer_norm (the same aten backward on the same statistics); the
+    module's fp32 parameters get fp32 gradients through the cast."""
+    x, w, b = _ln_inputs((3, 5), C, dtype, seed=1)
+    g = torch.randn(3, 5, C, generator=torch.Generator().manual_seed(2)
+                    ).to(dtype)
+    got = [t.clone().requires_grad_() for t in (x, w, b)]
+    want = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = knorm.layer_norm(*got)
+    assert type(y.grad_fn).__name__ == "LayerNormFnBackward"
+    y.backward(g)
+    F.layer_norm(want[0], (C,), want[1], want[2], 1e-5).backward(g)
+    for a, e in zip(got, want):
+        assert a.grad.dtype == dtype and torch.equal(a.grad, e.grad)
+    m = tlayers.layer_norm(C)
+    ref = torch.nn.LayerNorm(C, eps=1e-5)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    m(xs[0]).backward(g)
+    F.layer_norm(xs[1], (C,), ref.weight.to(dtype), ref.bias.to(dtype),
+                 1e-5).backward(g)
+    assert torch.equal(xs[0].grad, xs[1].grad)
+    for p, q in ((m.weight, ref.weight), (m.bias, ref.bias)):
+        assert p.grad.dtype == torch.float32 and torch.equal(p.grad, q.grad)
+
+
+class _NormBlock(torch.nn.Module):
+    """Two LayerNorms around a Linear and a GELU, as a block's MLP."""
+
+    def __init__(self, C):
+        super().__init__()
+        self.norm1 = tlayers.layer_norm(C)
+        self.fc = tlayers.linear(C, C)
+        self.norm2 = tlayers.layer_norm(C)
+        gen = torch.Generator().manual_seed(3)
+        tlayers.init_weights(self, gen)
+        with torch.no_grad():
+            for n in (self.norm1, self.norm2):
+                n.weight.add_(0.3 * torch.randn(C, generator=gen))
+                n.bias.add_(0.3 * torch.randn(C, generator=gen))
+
+    def forward(self, x):
+        return x + self.norm2(F.gelu(self.fc(self.norm1(x))))
+
+
+@pytest.mark.parametrize("policy", [None, "save_hot", "keep_layer_norm"])
+def test_layer_norm_grads_under_checkpointing(monkeypatch, policy):
+    """Under run_block's activation checkpointing the gradients equal
+    those of the unchecked block on F.layer_norm. The op is visible to
+    the selective policy: 'save_hot' recomputes it (two calls a module),
+    a policy keeping ``layer_norm`` does not (one)."""
+    from hotformerloc_torch.models import backbone
+    from hotformerloc_torch.models.config import tiny_test_config
+
+    if policy == "keep_layer_norm":
+        policy = "save_hot"
+        monkeypatch.setitem(backbone.REMAT_SAVED_OPS, policy,
+                            ("layer_norm",))
+        keeps = True
+    else:
+        keeps = False
+    calls = []
+    real = knorm.layer_norm_reference
+    monkeypatch.setattr(knorm, "layer_norm_reference",
+                        lambda *a: calls.append(1) or real(*a))
+    cfg = tiny_test_config(grad_checkpoint=True, remat_policy=policy)
+    blk = _NormBlock(32)
+    x = torch.randn(4, 6, 32, generator=torch.Generator().manual_seed(4))
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    backbone.run_block(cfg, blk, xs[0]).square().sum().backward()
+    got = [p.grad.clone() for p in blk.parameters()]
+    assert len(calls) == (2 if keeps else 4)
+    blk.zero_grad()
+    for m in (blk.norm1, blk.norm2):
+        m.use_kernels = False
+    blk(xs[1]).square().sum().backward()
+    assert torch.equal(xs[0].grad, xs[1].grad)
+    for a, p in zip(got, blk.parameters()):
+        assert torch.equal(a, p.grad)
+
+
+@pytest.mark.parametrize("case", ["meta", "width0", "odd_wide", "too_wide",
+                                  "weight_shape", "weight_dtype"])
+def test_layer_norm_refuses(case):
+    """Other devices, widths the kernel does not take (none, more than 256
+    single values, more than 256 vectors) and weights unlike x raise."""
+    C, dev, dt, wdt = 16, "cpu", torch.float32, torch.float32
+    wshape = None
+    if case == "meta":
+        dev = "meta"
+    elif case == "width0":
+        C = 0
+    elif case == "odd_wide":
+        C = 257
+    elif case == "too_wide":
+        C, dt, wdt = 2056, torch.bfloat16, torch.bfloat16
+    elif case == "weight_shape":
+        wshape = (C + 1,)
+    else:
+        wdt = torch.bfloat16
+    x = torch.zeros(3, C, dtype=dt, device=dev)
+    w = torch.ones(wshape or (C,), dtype=wdt, device=dev)
+    with pytest.raises(ValueError):
+        knorm.layer_norm(x, w, torch.zeros_like(w))
+
+
+@pytest.mark.parametrize("M,C,esz,aligned", [
+    (1, 8, 2, True), (37, 8, 2, True), (1000, 32, 2, True),
+    (777, 256, 2, True), (300, 512, 2, True), (50, 2048, 2, True),
+    (129, 24, 2, True), (200, 3, 4, True), (91, 16, 2, False),
+    (65, 100, 4, True), (33, 1024, 4, True), (5000, 64, 4, True)])
+def test_layer_norm_plan_covers_every_value_once(M, C, esz, aligned):
+    """The kernel's index arithmetic on ``layer_norm_plan``'s plan, with a
+    small grid (4 SMs) so that warps loop: every (row, column) is
+    written once, no lane reads past its row, a row's lanes are one
+    L-lane group of one warp (its shuffles stay inside), and each lane
+    holds at most 4 vectors before a reduction (1 from 4 a lane)."""
+    p = knorm.layer_norm_plan(M, C, esz, aligned, sms=4)
+    units = C // p.vec
+    assert p.vec * units == C and p.lanes * p.per_lane >= units
+    assert p.lanes == 32 or p.lanes >= units
+    assert p.unroll * p.per_lane == max(4, p.per_lane)
+    rows_per_group = 32 // p.lanes
+    groups = -(-M // rows_per_group)
+    nwarps = p.blocks * p.threads // 32
+    assert p.blocks <= 4 * knorm.BLOCKS_PER_SM
+    hits = np.zeros((M, C), np.int64)
+    lanes = np.arange(32)
+    sub, row_in = lanes % p.lanes, lanes // p.lanes
+    for warp in range(nwarps):
+        g = warp
+        while g < groups:                     # the kernel's loop
+            for u in range(p.unroll):
+                row = (g + u * nwarps) * rows_per_group + row_in
+                for j in range(p.per_lane):
+                    v = sub + j * p.lanes
+                    ok = (row < M) & (v < units)
+                    for e in range(p.vec):
+                        np.add.at(hits, (row[ok], v[ok] * p.vec + e), 1)
+            g += p.unroll * nwarps
+    assert (hits == 1).all()
+
+
+def test_layer_norm_plan_on_the_cells_shapes():
+    """At the H-OSA shape of both cells (C 256 bf16) the plan is one
+    16-byte vector a lane on 32 lanes, 4 rows a warp in flight, on
+    ``BLOCKS_PER_SM`` blocks of each SM; the stem's narrow rows share a
+    warp."""
+    for M in (32 * 88 * 49, 128 * 44 * 65):
+        assert knorm.layer_norm_plan(M, 256, 2) == knorm.LayerNormPlan(
+            8, 32, 1, 4, False, 256, 132 * knorm.BLOCKS_PER_SM)
+    assert knorm.layer_norm_plan(10 ** 6, 32, 2)[:4] == (8, 4, 1, 4)
+    assert knorm.layer_norm_plan(2 ** 24, 256, 4).wide
+
+
+def _ln_widths(cfg):
+    from hotformerloc_torch.models.hotformerloc import HOTFormerLoc
+    return {m.normalized_shape for m in HOTFormerLoc(cfg, device="meta")
+            .modules() if isinstance(m, tlayers.LayerNorm)}
+
+
+def test_layer_norm_takes_every_shipped_width(monkeypatch):
+    """Every LayerNorm width a shipped configuration builds
+    (configs/*_model.txt, the models/config.py presets) is one the kernel
+    takes on 16-byte vectors, in bf16 and fp32."""
+    import glob
+    import os
+
+    from hotformerloc_torch.config.params import parse_model_config
+    from hotformerloc_torch.models import config as mcfg
+    from hotformerloc_torch.models import hotformerloc as mhot
+
+    monkeypatch.setattr(mhot, "init_weights", lambda *a: None)
+    root = os.path.join(os.path.dirname(__file__), os.pardir, "configs")
+    cfgs = [mcfg.oxford_config(), mcfg.cs_wild_places_config(),
+            mcfg.tiny_test_config()]
+    cfgs += [parse_model_config(f, octree_depth=7).config
+             for f in sorted(glob.glob(os.path.join(root, "*_model.txt")))]
+    assert len(cfgs) == 7
+    widths = set().union(*(_ln_widths(c) for c in cfgs))
+    assert {w[0] for w in widths} >= {8, 16, 32, 64, 128, 256}
+    for (C,) in widths:
+        for esz in (2, 4):
+            assert knorm.layer_norm_plan(1000, C, esz).vec == 16 // esz
+
+
+def test_norm_bench_runs_on_cpu(tmp_path):
+    """tools/norm_bench end to end on the CPU (the plain versions): every
+    LayerNorm width of a tiny forward found, every shape held to the
+    fp32-statistics result and its training path to aten's (the same
+    code here, so exactly), no device number, its file written."""
+    from hotformerloc_torch.tools import norm_bench
+
+    lines = norm_bench.run(["--device", "cpu", "--reps", "1",
+                            "--out", str(tmp_path)])
+    shapes = [ln for ln in lines if "shape" in ln]
+    assert sum(ln["calls"] for ln in shapes
+               if ln["dtype"] == "bfloat16") > 0
+    assert {ln["shape"][1] for ln in shapes} == {8, 16, 32, 64}
+    assert all(ln["device_ms"] is None and ln["roofline"] is None
+               for ln in shapes)
+    assert all(ln.get("err_ulp", 0) <= 1 and ln.get("err_abs", 0) <= 1e-5
+               for ln in shapes)
+    assert all(ln["y_stats_same"] and ln["mean_err"] == ln["rstd_err"]
+               == ln["dx_err"] == ln["dw_err"] == ln["db_err"] == 0
+               for ln in shapes)
+    assert lines[-1] == {"summary": "tiny_test_config"}
+    assert (tmp_path / "norm_bench.json").exists()
+
+
+@pytest.mark.parametrize("fault", ["y", "mean", "rstd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_bench_catches_a_wrong_training_forward(monkeypatch, fault,
+                                                     dtype):
+    """The tool's training-path check fails when the op's output, mean or
+    rstd is off by a fault's size (one row's statistics moved by a
+    hundredth, its output by a hundredth of a standard deviation), while
+    the serving launch stays right."""
+    from hotformerloc_torch.tools import norm_bench
+
+    real = knorm.layer_norm_op
+
+    def faulty(x, w, b, eps):
+        y, mean, rstd = (t.clone() for t in real(x, w, b, eps))
+        if fault == "y":
+            y[3] += (0.01 * w).to(y.dtype)
+        else:
+            t = mean if fault == "mean" else rstd
+            t[3] += 0.01 * (rstd[3] ** -1 if fault == "mean" else t[3])
+        return y, mean, rstd
+
+    monkeypatch.setattr(knorm, "layer_norm_op", faulty)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(AssertionError, match="off its limits"):
+        norm_bench.shape_line("t", 64, 32, 1, dtype, torch.device("cpu"),
+                              1, gen)
