@@ -43,7 +43,11 @@ script exits non-zero without the final line:
    LayerNorm module called (none on the plain path), and the run no call
    of F.conv3d; descriptors must be finite and unit-norm with no octree
    overflow; the fp32 kernel descriptors must match the plain path on
-   the same card (cos >= 0.9999, max abs <= 1e-4). Retrieval recall@1 of
+   the same card (cos >= 0.9999, max abs <= 1e-4). These runs are eager
+   (``graphs=False``); the serving default, a CUDA graph from a shape's
+   second call, then runs the bf16 batch three times: a forward's
+   launches, a forward's (the capture), none (the replay), the replay
+   bit-equal to the eager descriptors. Retrieval recall@1 of
    the noisy copies against the originals is printed for information
    (the weights are random), with bf16 ms/batch and submaps/s.
 4b. weights: reference weights in (``weights_phase``): a state dict
@@ -400,29 +404,11 @@ def clouds(seed=0):
     return pts
 
 
-def surface_cloud(rng, points=4096, normals=False):
-    """``points`` points on 3-4 random planes through the cube (uniform in
-    a 1.8-wide square about a centre in +-0.5, clipped to +-0.95),
-    float32: its nodes have more valid taps than a uniform cloud's. With
-    ``normals`` also each point's unit plane normal (exact; the same
-    points either way)."""
-    out = np.empty((points, 3), np.float32)
-    nrm = np.empty((points, 3), np.float32)
-    n_planes = int(rng.integers(3, 5))
-    which = rng.integers(0, n_planes, points)
-    for i in range(n_planes):
-        basis, _ = np.linalg.qr(rng.normal(size=(3, 3)))
-        sel = which == i
-        ab = rng.uniform(-0.9, 0.9, (int(sel.sum()), 2))
-        out[sel] = rng.uniform(-0.5, 0.5, 3) + ab @ basis[:, :2].T
-        nrm[sel] = basis[:, 2]
-    out = np.clip(out, -0.95, 0.95)
-    return (out, nrm) if normals else out
-
-
 def surface_clouds(seed=2, normals=False):
     """A surface-like batch of BATCH clouds, for information beside the
     uniform one; with ``normals`` (points, normals)."""
+    from hotformerloc_torch.tools.graph_check import surface_cloud
+
     rng = np.random.default_rng(seed)
     clouds_ = [surface_cloud(rng, normals=normals) for _ in range(BATCH)]
     if normals:
@@ -721,7 +707,10 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
     information (the weights are random), with bf16 ms per batch (median
     of 5) and submaps/s. The batch must not overflow the octree. With
     ``spts`` the same checks and timing on that batch too (surf_*; its
-    overflow, the same on every path, is printed). ``normals``: the
+    overflow, the same on every path, is printed). The serving default,
+    graphed, on the first batch: its three calls must launch a forward's
+    kernels (eager), a forward's (the capture) and none (the replay), and
+    the replay must give the eager bf16 descriptors bit for bit. ``normals``: the
     batch's per-point normals, for the 'N' input feature. Returns
     (launches per bf16 forward, numbers)."""
     from hotformerloc_torch.evaluation.embed import make_embed_fn
@@ -752,12 +741,13 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
 
     model = HOTFormerLoc(cfg, device="cuda",
                          generator=torch.Generator().manual_seed(0))
-    embed_bf16 = make_embed_fn(model, torch.bfloat16)
-    embed_fp32 = make_embed_fn(model, torch.float32)
+    # eager: each call launches its kernels, which the counters count
+    embed_bf16 = make_embed_fn(model, torch.bfloat16, graphs=False)
+    embed_fp32 = make_embed_fn(model, torch.float32, graphs=False)
     plain_model = HOTFormerLoc(cfg, device="cuda",
                                generator=torch.Generator().manual_seed(0))
     plain_model.set_use_kernels(False)
-    embed_plain = make_embed_fn(plain_model, torch.float32)
+    embed_plain = make_embed_fn(plain_model, torch.float32, graphs=False)
     out = {"batch": len(pts)}
     for tag, p, nrm in (("", pts, normals), ("surf_", spts, None)):
         if p is None:
@@ -773,6 +763,26 @@ def serve_check(torch, cfg, pts, pmask, cases, per_forward, spts=None,
         if launches != dict(want, layer_norm=lns.calls) or not lns.calls:
             raise AssertionError(f"launches {launches} != expected {want} "
                                  f"and {lns.calls} LayerNorms")
+        if not tag:
+            # the serving default, as the serve cells run it: an eager
+            # call, the capture (its launches recorded), then a replay
+            # that launches nothing from the host
+            embed_graph = make_embed_fn(model, torch.bfloat16)
+            steps = []
+            for _ in range(3):
+                kernels.reset_launches()
+                out_graph = embed_graph(p, pmask, nrm)
+                steps.append(dict(kernels.LAUNCHES))
+            torch.cuda.synchronize()
+            none = dict.fromkeys(launches, 0)
+            if steps != [launches, launches, none]:
+                raise AssertionError(f"graphed calls launched {steps}, not "
+                                     "a forward's, a forward's, none")
+            if not torch.equal(out_graph["global"], out_bf16["global"]):
+                raise AssertionError("the replayed bf16 descriptors differ "
+                                     "from the eager ones")
+            out["graph_launches_per_call"] = [sum(x.values()) for x in steps]
+            del embed_graph
         kernels.reset_launches()
         with CountLayerNorms() as lns:
             out_fp32 = embed_fp32(p, pmask, nrm)
@@ -876,7 +886,7 @@ def spans_phase(torch, cfg, pts, pmask):
 
     model = HOTFormerLoc(cfg, device="cuda",
                          generator=torch.Generator().manual_seed(0))
-    embed = make_embed_fn(model, torch.bfloat16)
+    embed = make_embed_fn(model, torch.bfloat16, graphs=False)   # spans
 
     def records(spans_on):
         real = profiling._autograd_profiler
@@ -1643,6 +1653,7 @@ def write_entry_dataset(root, n_locs=ENTRY_LOCS, n_eval=ENTRY_EVAL,
 
     from hotformerloc_torch.data.tuples import load_pickle_compat
     from hotformerloc_torch.tools import pnv_tuples as pnv
+    from hotformerloc_torch.tools.graph_check import surface_cloud
     assert n_eval <= len(ENTRY_GRID) ** 2
     rng = np.random.default_rng(seed)
 
@@ -2331,6 +2342,7 @@ def write_wild_dataset(root, dataset, train_file, val_file=None,
     from hotformerloc_torch.data.tuples import TrainingTuple
     from hotformerloc_torch.evaluation.evaluate import \
         get_query_database_splits
+    from hotformerloc_torch.tools.graph_check import surface_cloud
     rng = np.random.default_rng(seed)
 
     def write(rel, base):

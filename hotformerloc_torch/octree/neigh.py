@@ -34,6 +34,14 @@ def kernel_offsets(kernel: str) -> np.ndarray:
     return grid.reshape(-1, 3).astype(np.int32)
 
 
+@lru_cache(maxsize=None)
+def on_device(table, device: torch.device, *args) -> torch.Tensor:
+    """The constant ``table(*args)`` (a cached numpy array) as a tensor on
+    ``device``, copied there once: a host-to-device copy inside a forward
+    waits on the card, which a CUDA graph's capture refuses."""
+    return torch.as_tensor(table(*args), device=device)
+
+
 def lookup(keys: torch.Tensor, counts: torch.Tensor,
            query: torch.Tensor) -> torch.Tensor:
     """Find query keys (B, M) in per-sample sorted keys (B, N) with valid
@@ -47,12 +55,13 @@ def lookup(keys: torch.Tensor, counts: torch.Tensor,
     return torch.where(hit, idx, torch.full_like(idx, -1)).to(torch.int32)
 
 
-def _tap_keys(keys: torch.Tensor, depth: int, offsets: np.ndarray):
-    """Morton keys of every node's K neighbours: (B, K, N) keys and an
-    in-volume mask (False for padding nodes)."""
+def _tap_keys(keys: torch.Tensor, depth: int, kernel: str):
+    """Morton keys of every node's K neighbours under ``kernel``'s
+    offsets: (B, K, N) keys and an in-volume mask (False for padding
+    nodes)."""
     valid = keys < SENTINEL
     safe = torch.where(valid, keys, torch.zeros_like(keys))
-    offs = torch.as_tensor(offsets, device=keys.device)
+    offs = on_device(kernel_offsets, keys.device, kernel)
     lim = 2**depth
     B, N = keys.shape
     inside = valid[:, None, :].expand(B, offs.shape[0], N)
@@ -72,15 +81,15 @@ def neigh_table(octree: BatchedOctree, depth: int,
     search over the sorted keys."""
     keys = octree.key(depth)
     B, N = keys.shape
-    nk, inside = _tap_keys(keys, depth, kernel_offsets(kernel))
+    nk, inside = _tap_keys(keys, depth, kernel)
     q = torch.where(inside, nk, torch.full_like(nk, SENTINEL))
     tab = lookup(keys, octree.count(depth), q.reshape(B, -1))
     return tab.reshape(B, -1, N).transpose(1, 2).contiguous()
 
 
 @lru_cache(maxsize=None)
-def _parent_tap_tables() -> Tuple[np.ndarray, np.ndarray]:
-    """Static (8, 27) tables: TAP[o, t] = parent-level tap holding the
+def _parent_tap_tables() -> np.ndarray:
+    """Static (2, 8, 27) tables: TAP[o, t] = parent-level tap holding the
     neighbour at offset t of a child in octant o; OCT[o, t] = that
     neighbour's octant within it."""
     offs = kernel_offsets("333")
@@ -94,7 +103,7 @@ def _parent_tap_tables() -> Tuple[np.ndarray, np.ndarray]:
             tap[o, t] = np.argmax(np.all(offs == carry, axis=1))
             b2 = s & 1
             oct_[o, t] = (b2[0] << 2) | (b2[1] << 1) | b2[2]
-    return tap, oct_
+    return np.stack([tap, oct_])
 
 
 def _dense_base_neigh(octree: BatchedOctree, depth: int) -> torch.Tensor:
@@ -111,7 +120,7 @@ def _dense_base_neigh(octree: BatchedOctree, depth: int) -> torch.Tensor:
     inv = torch.full((B, size + 2), -1, dtype=torch.int32, device=dev)
     ids = torch.arange(N, dtype=torch.int32, device=dev).expand(B, N)
     inv.scatter_(1, slot, ids)
-    nk, inside = _tap_keys(keys, depth, kernel_offsets("333"))
+    nk, inside = _tap_keys(keys, depth, "333")
     q = torch.where(inside, nk, torch.full_like(nk, size)).long()
     tab = torch.gather(inv, 1, q.reshape(B, -1)).reshape(B, 27, N)
     return tab.transpose(1, 2).contiguous()
@@ -141,10 +150,8 @@ def all_neigh_tables(octree: BatchedOctree,
     top-down: a node's neighbour at offset t is a fixed child of its
     parent's neighbour at a fixed parent tap. ``childrens``: per level
     the (B, N_{d-1}, 8) child table (None at the coarsest)."""
-    tap_np, oct_np = _parent_tap_tables()
-    dev = octree.leaf_mean.device
-    tap_tab = torch.as_tensor(tap_np, device=dev).long()
-    oct_tab = torch.as_tensor(oct_np, device=dev).long()
+    tap_tab, oct_tab = on_device(_parent_tap_tables,
+                                 octree.leaf_mean.device).long()
     out = [_dense_base_neigh(octree, octree.min_depth)]
     for d in range(octree.min_depth + 1, octree.depth + 1):
         keys = octree.key(d)

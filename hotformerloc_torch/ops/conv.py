@@ -248,9 +248,9 @@ def _morton_of_raster(depth: int) -> np.ndarray:
 def dense_voxel_index(keys: torch.Tensor, counts: torch.Tensor,
                       depth: int) -> torch.Tensor:
     """(B, V) node index of every raster voxel, -1 where empty."""
-    from hotformerloc_torch.octree.neigh import lookup
+    from hotformerloc_torch.octree.neigh import lookup, on_device
     B = keys.shape[0]
-    q = torch.as_tensor(_morton_of_raster(depth), device=keys.device)
+    q = on_device(_morton_of_raster, keys.device, depth)
     return lookup(keys, counts, q[None].expand(B, -1))
 
 

@@ -178,7 +178,7 @@ def forward_shapes(cfg, batch, dev) -> Counter:
     model = HOTFormerLoc(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0))
     model.to(torch.bfloat16)
-    embed = make_embed_fn(model, torch.bfloat16)
+    embed = make_embed_fn(model, torch.bfloat16, graphs=False)   # hooks
     rng = np.random.default_rng(0)
     pts = torch.from_numpy(rng.uniform(-0.9, 0.9, (
         batch, cfg.num_points, 3)).astype(np.float32)).to(dev)

@@ -10,8 +10,9 @@ take for a given work; ``trace`` wraps ``torch.profiler``; ``annotate``
 opens a named span of the program (one flag check when no profiler
 runs) and ``span_summary`` attributes a trace's device time to the
 innermost span that launched it; ``count`` adds to a counter of an open
-``counting()`` scope; ``print_info`` counts parameters by module path;
-``step_cost`` counts FLOPs with ``torch.utils.flop_counter``.
+``counting()`` scope (``counting_open`` says whether one is);
+``print_info`` counts parameters by module path; ``step_cost`` counts
+FLOPs with ``torch.utils.flop_counter``.
 """
 from __future__ import annotations
 
@@ -288,6 +289,11 @@ def counting():
         yield _COUNTS
     finally:
         _COUNTS = prev
+
+
+def counting_open() -> bool:
+    """Whether a ``counting()`` scope is open."""
+    return _COUNTS is not None
 
 
 def count(name: str, value) -> None:
